@@ -1,0 +1,100 @@
+"""Carry the JAX package's weights into the port.
+
+Both converters take the JAX package's parameters as numpy arrays (flax
+trees, as `vec_vad_tpu.runtime.artifacts` saves them) and return a torch
+state dict for the port's module:
+
+  * completion_from_jax — the flax `raw_unets`/`of_unets` trees (leading
+    member axis E) -> SelfCompletionNet. Conv kernels (E, kh, kw, I, O)
+    -> grouped (E*O, I, kh, kw); ConvTranspose2x kernels (E, kh, kw, I, O)
+    -> grouped (E*I, O, kh, kw) WITHOUT a flip, because the JAX layer flips
+    inside its forward (vec_vad_tpu/models/layers.py:90-97) where torch's
+    conv_transpose2d does the same implicitly.
+  * flownet2_from_jax — the FlowNet2 tree -> FlowNet2, the inverse of
+    vec_vad_tpu/models/flownet/convert.py:31-36 (HWIO -> OIHW for convs,
+    (kh, kw, I, O) -> (I, O, kh, kw) for transposed convs).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32, order="C"))  # own copy
+
+
+def _group_conv(k) -> torch.Tensor:
+    k = np.asarray(k)
+    E, kh, kw, i, o = k.shape
+    return _t(k.transpose(0, 4, 3, 1, 2).reshape(E * o, i, kh, kw))
+
+
+def _group_conv_t(k) -> torch.Tensor:
+    k = np.asarray(k)
+    E, kh, kw, i, o = k.shape
+    return _t(k.transpose(0, 3, 4, 1, 2).reshape(E * i, o, kh, kw))
+
+
+def _flat(v) -> torch.Tensor:
+    return _t(np.asarray(v).reshape(-1))
+
+
+def _unet_from_jax(p: Dict[str, Any], s: Dict[str, Any], prefix: str):
+    sd = {}
+    # flax auto-names: DoubleConv_0..3 descend, DoubleConv_4..6 ascend
+    names = [f"down.{i}" for i in range(4)] + [f"up.{i}" for i in range(3)]
+    for i, name in enumerate(names):
+        dp, ds = p[f"DoubleConv_{i}"], s[f"DoubleConv_{i}"]
+        for j in (0, 1):
+            conv, bn, st = dp[f"Conv_{j}"], dp[f"BatchNorm_{j}"], ds[f"BatchNorm_{j}"]
+            m = f"{prefix}.{name}"
+            sd[f"{m}.conv{j}.weight"] = _group_conv(conv["kernel"])
+            sd[f"{m}.conv{j}.bias"] = _flat(conv["bias"])
+            sd[f"{m}.bn{j}.weight"] = _flat(bn["scale"])
+            sd[f"{m}.bn{j}.bias"] = _flat(bn["bias"])
+            sd[f"{m}.bn{j}.running_mean"] = _flat(st["mean"])
+            sd[f"{m}.bn{j}.running_var"] = _flat(st["var"])
+    for i in range(3):
+        ct = p[f"ConvTranspose2x_{i}"]
+        sd[f"{prefix}.up_t.{i}.weight"] = _group_conv_t(ct["kernel"])
+        sd[f"{prefix}.up_t.{i}.bias"] = _flat(ct["bias"])
+    sd[f"{prefix}.out.weight"] = _group_conv(p["out_kernel"])
+    sd[f"{prefix}.out.bias"] = _flat(p["out_bias"])
+    return sd
+
+
+def completion_from_jax(params: Dict[str, Any],
+                        batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for models.completion.SelfCompletionNet."""
+    sd = {}
+    for ens in ("raw_unets", "of_unets"):
+        if ens in params:
+            sd.update(_unet_from_jax(params[ens], batch_stats[ens], ens))
+    return sd
+
+
+def flownet2_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for models.flownet.FlowNet2 (or any of its component
+    nets, given that net's own variables)."""
+    sd = {}
+
+    def visit(tree, path):
+        if "kernel" in tree:
+            transposed = path[-1].startswith("upsampled_flow") or (
+                path[-1] == "conv" and path[-2].startswith("deconv")
+            )
+            k = np.asarray(tree["kernel"])
+            perm = (2, 3, 0, 1) if transposed else (3, 2, 0, 1)
+            sd[".".join(path + ["weight"])] = _t(k.transpose(perm))
+            if "bias" in tree:
+                sd[".".join(path + ["bias"])] = _t(tree["bias"])
+            return
+        for key, sub in tree.items():
+            visit(sub, path + [key])
+
+    visit(variables["params"], [])
+    return sd

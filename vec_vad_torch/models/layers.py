@@ -1,0 +1,153 @@
+"""Completion-network building blocks for an ensemble of E members
+(vec_vad_tpu/models/layers.py).
+
+The JAX package runs the erased-position ensemble as one UNet vmapped over
+stacked parameters. Here the E members run as ONE network of grouped
+convolutions: activations are NCHW with E*C channels, member-major, and
+every convolution uses groups=E, so the whole ensemble is one launch per
+layer. Semantics per member are torch's defaults, which layers.py
+replicates:
+
+  * Conv2d 3x3 'same' / 1x1;
+  * ConvTranspose2d(k=3, s=2, p=1, output_padding=1), weight (I, O, kh, kw);
+  * BatchNorm2d with eps 1e-5, in eval mode (running statistics) — the
+    serving slice does not train;
+  * MaxPool2d(2).
+
+Parameters are created empty on `device`; weights come from
+models/convert.py or `init_completion_`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from vec_vad_torch.device import resolve_device
+
+
+class Conv(nn.Module):
+    """E grouped k x k 'same' convolutions; weight (E*O, I, k, k)."""
+
+    def __init__(self, members, in_ch, features, kernel_size=3, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        k = kernel_size
+        self.members, self.padding = members, k // 2
+        self.weight = nn.Parameter(
+            torch.empty(members * features, in_ch, k, k, device=dev)
+        )
+        self.bias = nn.Parameter(torch.empty(members * features, device=dev))
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, 1, self.padding, 1,
+                        self.members)
+
+
+class ConvTranspose2x(nn.Module):
+    """E grouped ConvTranspose2d(k=3, s=2, p=1, output_padding=1): doubles
+    the spatial size (model/unet.py:54); weight (E*I, O, 3, 3)."""
+
+    def __init__(self, members, in_ch, features, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.members = members
+        self.weight = nn.Parameter(
+            torch.empty(members * in_ch, features, 3, 3, device=dev)
+        )
+        self.bias = nn.Parameter(torch.empty(members * features, device=dev))
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight, self.bias, 2, 1, 1,
+                                  self.members)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm2d over E*F channels (running statistics)."""
+
+    def __init__(self, members, features, epsilon=1e-5, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        n = members * features
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(n, device=dev))
+        self.bias = nn.Parameter(torch.zeros(n, device=dev))
+        self.register_buffer("running_mean", torch.zeros(n, device=dev))
+        self.register_buffer("running_var", torch.ones(n, device=dev))
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, self.epsilon)
+
+
+class DoubleConv(nn.Module):
+    """(conv3x3 -> BN -> ReLU) x 2 (model/unet.py:4-20)."""
+
+    def __init__(self, members, in_ch, features, device="cuda"):
+        super().__init__()
+        self.conv0 = Conv(members, in_ch, features, device=device)
+        self.bn0 = BatchNorm(members, features, device=device)
+        self.conv1 = Conv(members, features, features, device=device)
+        self.bn1 = BatchNorm(members, features, device=device)
+
+    def forward(self, x):
+        x = F.relu(self.bn0(self.conv0(x)))
+        return F.relu(self.bn1(self.conv1(x)))
+
+
+def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(kernel_size=2) (model/unet.py:38)."""
+    return F.max_pool2d(x, 2)
+
+
+def _cat_members(members, a, b):
+    """Per-member channel concat [a_e, b_e] of two (N, E*Ca, ...) and
+    (N, E*Cb, ...) member-major tensors."""
+    n, h, w = a.shape[0], a.shape[2], a.shape[3]
+    y = torch.cat(
+        [a.reshape(n, members, -1, h, w), b.reshape(n, members, -1, h, w)],
+        dim=2,
+    )
+    return y.reshape(n, -1, h, w)
+
+
+class UNet(nn.Module):
+    """E depth-4 completion UNets (model/unet.py:73-267 single-member
+    shape): inconv -> 3x(maxpool+double_conv) -> 3x(convT-up + skip
+    concat + double_conv) -> 1x1 outconv. Channels f, 2f, 4f, 8f.
+
+    forward: (N, E*in_ch, P, P) -> (N, E*out_ch, P, P), member-major."""
+
+    def __init__(self, members, in_ch, features_root, out_channels,
+                 device="cuda"):
+        super().__init__()
+        E, f, d = members, features_root, device
+        self.members = E
+        self.down = nn.ModuleList([
+            DoubleConv(E, in_ch, f, d),
+            DoubleConv(E, f, 2 * f, d),
+            DoubleConv(E, 2 * f, 4 * f, d),
+            DoubleConv(E, 4 * f, 8 * f, d),
+        ])
+        self.up_t = nn.ModuleList([
+            ConvTranspose2x(E, 8 * f, 4 * f, d),
+            ConvTranspose2x(E, 4 * f, 2 * f, d),
+            ConvTranspose2x(E, 2 * f, f, d),
+        ])
+        self.up = nn.ModuleList([
+            DoubleConv(E, 8 * f, 4 * f, d),
+            DoubleConv(E, 4 * f, 2 * f, d),
+            DoubleConv(E, 2 * f, f, d),
+        ])
+        self.out = Conv(E, f, out_channels, kernel_size=1, device=d)
+
+    def forward(self, x):
+        x1 = self.down[0](x)
+        x2 = self.down[1](max_pool_2x(x1))
+        x3 = self.down[2](max_pool_2x(x2))
+        x4 = self.down[3](max_pool_2x(x3))
+        y = x4
+        for skip, up_t, up in zip((x3, x2, x1), self.up_t, self.up):
+            y = up(_cat_members(self.members, skip, up_t(y)))
+        return self.out(y)
