@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from vec_vad_torch import kernels
+from vec_vad_torch.cli import make_flow_net
+from vec_vad_torch.flow.trainer import FlowTrainer
 from vec_vad_torch.models.flownet import make_flownet2
 from vec_vad_torch.models.flownet import ops as tops
 
@@ -48,6 +50,7 @@ def _pair(seed, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,max_disp,stride", [
     ((1, 48, 64, 256), 20, 2),   # the serving shape
+    ((8, 48, 64, 256), 20, 2),   # the training shape (FlowNetC conv3, batch 8)
     ((2, 13, 30, 48), 20, 2),    # ragged H, C != 256, W not a tile multiple
     ((3, 7, 70, 33), 4, 1),      # small displacement grid, odd C
 ])
@@ -73,10 +76,93 @@ def test_correlation_kernel_refuses_what_it_cannot_run(cuda):
         tops.correlation(a.half(), b.half())
     with pytest.raises(ValueError, match="CUDA device"):
         tops.correlation(a, b.cpu())
-    with pytest.raises(NotImplementedError, match="K2"):
-        tops.correlation(a.clone().requires_grad_(True), b)
-    with torch.no_grad():
-        assert tops.correlation(a.clone().requires_grad_(True), b).shape == (1, 8, 8, 441)
+    # a correlation that needs a gradient runs its backward on the card
+    x = a.clone().requires_grad_(True)
+    tops.correlation(x, b).square().sum().backward()
+    torch.cuda.synchronize()
+    assert x.grad.shape == a.shape and torch.isfinite(x.grad).all()
+    g = torch.ones((1, 8, 8, 441), device=cuda)
+    with pytest.raises(TypeError):
+        tops.correlation_bwd(a, b, g.bfloat16())
+    with pytest.raises(ValueError, match="must be"):
+        tops.correlation_bwd(a, b, g[..., :440])
+    with pytest.raises(ValueError, match="CUDA device"):
+        tops.correlation_bwd(a, b, g.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,max_disp,stride", [
+    ((8, 48, 64, 256), 20, 2),   # the training shape (FlowNetC conv3, batch 8)
+    ((2, 13, 30, 48), 20, 2),    # ragged H, C != 256, W not a tile multiple
+    ((3, 7, 70, 33), 4, 1),      # small displacement grid, odd C
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_correlation_bwd_kernel_matches_plain(cuda, shape, max_disp, stride, dtype):
+    """K2 against correlation_bwd_ref on the same inputs: f32 sums of
+    n*n products in the same order, fused multiply-adds against separate
+    ones -> a few ulp (F32); bf16 grads round one f32 sum -> one ulp."""
+    a, b = (torch.from_numpy(x).to(cuda, dtype) for x in _pair(5, shape))
+    n = 2 * max_disp // stride + 1
+    g = torch.from_numpy(np.random.default_rng(6).normal(
+        size=shape[:3] + (n * n,)).astype(np.float32)).to(cuda, dtype)
+    kernels.reset_launch_counts()
+    got = tops.correlation_bwd(a, b, g, max_disp, stride)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["correlation_bwd"] == 1
+    want = tops.correlation_bwd_ref(a, b, g, max_disp, stride)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype and x.shape == a.shape
+        torch.testing.assert_close(x.float(), y.float(),
+                                   **(F32 if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.cuda
+def test_correlation_function_grads_match_cpu(cuda):
+    """The autograd Function on the card (K1 forward, K2 backward, one
+    launch each) gives the CPU path's cost volume and gradients."""
+    a, b = _pair(7, (2, 13, 30, 48))
+    g = np.random.default_rng(8).normal(size=(2, 13, 30, 441)).astype(np.float32)
+    grads = []
+    for dev in ("cpu", cuda):
+        x, y = (torch.from_numpy(v).to(dev).requires_grad_(True) for v in (a, b))
+        kernels.reset_launch_counts()
+        out = tops.correlation(x, y)
+        (out * torch.from_numpy(g).to(dev)).sum().backward()
+        grads.append((out.detach().cpu(), x.grad.cpu(), y.grad.cpu()))
+    torch.cuda.synchronize()
+    assert dict(kernels.launch_counts) == {"correlation": 1, "correlation_bwd": 1}
+    for got, want in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.cuda
+def test_flownetc_training_step_matches_cpu(cuda, full_f32):
+    """One FlowNetC multi-scale training step on the card (TF32 off) and
+    on the CPU from the same seeded weights and batch: the loss within
+    1e-4 relative, every parameter's gradient within 1e-3 of that
+    tensor's largest |grad| (cuDNN and oneDNN sum ~30 f32 convolutions,
+    forward and backward, in other orders; cuDNN's weight gradients use
+    atomics), and K1 and K2 launched once each."""
+    rng = np.random.default_rng(10)
+    pairs = rng.uniform(0, 255, (2, 64, 64, 6)).astype(np.float32)
+    target = rng.normal(0, 3, (2, 64, 64, 2)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = FlowTrainer(make_flow_net("FlowNetC", 3, dev), device=dev)
+        kernels.reset_launch_counts()
+        m = tr.step(pairs, target)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert dict(kernels.launch_counts) == {"correlation": 1,
+                                                   "correlation_bwd": 1}
+        out[dev] = (float(m["loss"]), {k: p.grad.cpu() for k, p in
+                                       tr.net.named_parameters()})
+    (loss_c, grads_c), (loss_g, grads_g) = out["cpu"], out["cuda"]
+    assert np.isfinite(loss_g)
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    for k, want in grads_c.items():
+        err = float((grads_g[k] - want).abs().max())
+        assert err <= 1e-3 * float(want.abs().max()), k
 
 
 @pytest.mark.cuda

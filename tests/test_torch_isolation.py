@@ -71,9 +71,11 @@ def test_sources_import_nothing_of_jax():
 def test_entry_points_need_a_card_or_cpu(monkeypatch):
     """Without a card, device='cuda' (the default) raises; device='cpu'
     runs. No entry point falls back to the CPU by itself."""
+    from vec_vad_torch.cli import main as cli_main
     from vec_vad_torch.config import CompletionConfig, PipelineConfig
+    from vec_vad_torch.flow.trainer import FlowTrainer
     from vec_vad_torch.models.completion import make_completion_net
-    from vec_vad_torch.models.flownet import FlowNet2
+    from vec_vad_torch.models.flownet import FlowNet2, FlowNet2C
     from vec_vad_torch.serve import StreamingScorer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -89,6 +91,15 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch):
         StreamingScorer(cfg, net.state_dict(), (0.0, 1.0))
     sc = StreamingScorer(cfg, net.state_dict(), (0.0, 1.0), device="cpu")
     assert sc.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FlowNet2C()
+    flow_net = FlowNet2C(device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FlowTrainer(flow_net)
+    assert FlowTrainer(flow_net, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_main(["flow-train", "--data-root", ".", "--workdir", ".",
+                  "--net", "FlowNetC"])
 
 
 def test_correlation_wrapper_routes_by_device():
@@ -174,8 +185,9 @@ def test_kernel_sources_build_by_content():
     """Every csrc source has its own library name, keyed by its content,
     under the ignored build directory (nothing is built here)."""
     names = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
-    assert names == ["correlation"]
-    path = kernels._lib_path("correlation")
-    assert path.parent == ROOT / "build" / "kernels"
-    assert path.name.startswith("libcorrelation-") and path.suffix == ".so"
+    assert names == ["correlation", "correlation_bwd"]
+    for name in names:
+        path = kernels._lib_path(name)
+        assert path.parent == ROOT / "build" / "kernels"
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
     assert "build/" in (ROOT / ".gitignore").read_text().split()

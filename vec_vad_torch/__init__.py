@@ -10,10 +10,17 @@ where no card is present, unless the caller asks for `device="cpu"`.
 On the CPU a kernel wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches its hand-written kernel or raises.
 
-Ported so far (slice 1): live-flow two-stream serving —
-serve.live_flow.FlowStreamingScorer over FlowNet2 (models.flownet) with
-the FlowNetC correlation as a CUDA kernel (csrc/correlation.cu), STC
-extraction (ops.stc) and the completion ensemble (models.completion).
+Ported so far:
+  * live-flow two-stream serving — serve.live_flow.FlowStreamingScorer over
+    FlowNet2 (models.flownet), STC extraction (ops.stc) and the completion
+    ensemble (models.completion);
+  * flow training — flow.trainer.FlowTrainer and flow.harness.FlowHarness
+    over the FlowNet2 family with the flow datasets and losses, reference
+    checkpoint loading, and the flow-train / flow-infer CLI
+    (`python -m vec_vad_torch`).
+The FlowNetC correlation is differentiable and runs as hand-written CUDA
+kernels on the card: csrc/correlation.cu forward, csrc/correlation_bwd.cu
+backward.
 """
 
 __version__ = "0.1.0"

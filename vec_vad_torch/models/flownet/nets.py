@@ -20,7 +20,10 @@ channels_last in memory (no copy on the PyTorch side; cuDNN may still
 transpose internally for the f32 kernel it picks).
 
 All nets return the 5-scale flow pyramid (flow2..flow6; Fusion returns
-flow0).
+flow0) under both values of `train`: without BatchNorm the flag changes
+nothing, and it is taken so the nets are called as the JAX package's are.
+Gradients flow through every net; FlowNetC's cost volume is differentiable
+(`ops.correlation`, K1 forward and K2 backward on the card).
 """
 
 from __future__ import annotations
@@ -170,7 +173,7 @@ class FlowNetC(_Pyramid):
         self._decoder(d, 1024, 512, 512, 256, 128, True,
                       (1024, c5, c4, c3, 128 + 64 + 2))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x1, x2 = x[..., :3], x[..., 3:]
         c1a = self.conv1(x1)
         c2a = self.conv2(c1a)
@@ -207,7 +210,7 @@ class FlowNetS(_Pyramid):
         self._decoder(d, 1024, 512, 512, 256, 128, False,
                       (1024, c5, c4, c3, 128 + 64 + 2))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         c1 = self.conv1(x)
         c2 = self.conv2(c1)
         c3 = self.conv3_1(self.conv3(c2))
@@ -244,7 +247,7 @@ class FlowNetSD(_Pyramid):
         self._decoder(d, 1024, 512, 512, 256, 128, True,
                       (1024, 512, 256, 128, 64))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         c0 = self.conv0(x)
         c1 = self.conv1_1(self.conv1(c0))
         c2 = self.conv2_1(self.conv2(c1))
@@ -277,7 +280,7 @@ class FlowNetFusion(nn.Module):
         self.upsampled_flow2_to_1 = TorchConvT4x2(2, 2, device=d)
         self.upsampled_flow1_to_0 = TorchConvT4x2(2, 2, device=d)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         c0 = self.conv0(x)
         c1 = self.conv1_1(self.conv1(c0))
         c2 = self.conv2_1(self.conv2(c1))

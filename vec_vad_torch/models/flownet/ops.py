@@ -1,13 +1,14 @@
 """FlowNet2's custom ops in PyTorch (vec_vad_tpu/models/flownet/ops.py).
 
-  * correlation — the FlowNetC cost volume. On a CUDA tensor it launches
-    the hand-written kernel csrc/correlation.cu (K1, forward only in this
-    slice); on a CPU tensor it runs `correlation_ref`, the plain version.
-    `correlation_bwd_ref` is the plain analytic backward that the CUDA
-    backward kernel (K2, a later slice) will be held to.
+  * correlation — the FlowNetC cost volume, differentiable (a
+    torch.autograd.Function that saves only its inputs). On CUDA tensors
+    its forward launches csrc/correlation.cu (K1) and its backward
+    csrc/correlation_bwd.cu (K2); on CPU tensors they run the plain
+    versions `correlation_ref` and `correlation_bwd_ref`.
   * warp_bilinear — Resample2d with the CUDA kernel's corner-clamped /
     unclamped-weight convention.
-  * channel_norm, upsample_bilinear (both align_corners), upsample_nearest.
+  * channel_norm (with the reference kernel's backward, finite at 0),
+    upsample_bilinear (both align_corners), upsample_nearest.
 
 Everything NHWC, as in the JAX package.
 """
@@ -95,19 +96,26 @@ def _check_kernel_inputs(a: torch.Tensor, b: torch.Tensor, max_disp, stride):
         )
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("correlation: a and b must be contiguous NHWC")
-    n = 2 * max_disp // stride + 1
-    if stride <= 0 or max_disp < 0 or n > 24 or max_disp > 148:
+    if stride <= 0 or max_disp < 0 or 2 * max_disp // stride + 1 > 24 \
+            or max_disp > 148:
         raise ValueError(
             f"correlation kernel takes n_disp <= 24 and max_disp <= 148, got "
             f"max_disp={max_disp}, stride={stride}"
         )
-    if a.requires_grad or b.requires_grad:
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "correlation on CUDA is forward-only: its backward kernel "
-                "(K2, correlation_bwd_pallas's port) is not written yet; "
-                "run under torch.no_grad()"
-            )
+
+
+def _launch(name: str, symbol: str, ptrs, ints, device) -> None:
+    """Call csrc/<name>.cu's C entry point on `device`'s current stream;
+    raise if it returns a CUDA error."""
+    fn = getattr(kernels.load_library(name), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    kernels.launch_counts[name] += 1
 
 
 def correlation_kernel(
@@ -118,29 +126,78 @@ def correlation_kernel(
     B, H, W, C = a.shape
     n = 2 * max_disp // stride + 1
     out = torch.empty((B, H, W, n * n), dtype=a.dtype, device=a.device)
-    fn = kernels.load_library("correlation").vv_correlation_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), _KERNEL_DTYPES[a.dtype],
-            B, H, W, C, max_disp, stride, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"correlation kernel launch failed: CUDA error {err}")
-    kernels.launch_counts["correlation"] += 1
+    _launch("correlation", "vv_correlation_fwd",
+            (a.data_ptr(), b.data_ptr(), out.data_ptr()),
+            (_KERNEL_DTYPES[a.dtype], B, H, W, C, max_disp, stride), a.device)
     return out
+
+
+def correlation_bwd_kernel(a, b, g, max_disp: int = 20, stride: int = 2):
+    """Launch csrc/correlation_bwd.cu (K2) on CUDA tensors (no fallback):
+    (grad_a, grad_b) in one launch, counted once."""
+    _check_kernel_inputs(a, b, max_disp, stride)
+    n = 2 * max_disp // stride + 1
+    if not g.is_cuda or g.device != a.device:
+        raise ValueError("correlation backward: g must lie on a's CUDA device")
+    if g.dtype != a.dtype:
+        raise TypeError(
+            f"correlation backward: g is {g.dtype}, the inputs {a.dtype}"
+        )
+    if tuple(g.shape) != (*a.shape[:3], n * n):
+        raise ValueError(
+            f"correlation backward: g must be {(*a.shape[:3], n * n)}, got "
+            f"{tuple(g.shape)}"
+        )
+    g = g.contiguous()
+    B, H, W, C = a.shape
+    grad_a, grad_b = torch.empty_like(a), torch.empty_like(b)
+    _launch("correlation_bwd", "vv_correlation_bwd",
+            (a.data_ptr(), b.data_ptr(), g.data_ptr(), grad_a.data_ptr(),
+             grad_b.data_ptr()),
+            (_KERNEL_DTYPES[a.dtype], B, H, W, C, max_disp, stride), a.device)
+    return grad_a, grad_b
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def correlation_bwd(a, b, g, max_disp: int = 20, stride: int = 2):
+    """The cost volume's (grad_a, grad_b): K2 on CUDA tensors, the plain
+    version on CPU tensors; anything else raises."""
+    if _on_cpu(a, b, g):
+        return correlation_bwd_ref(a, b, g, max_disp, stride)
+    return correlation_bwd_kernel(a, b, g, max_disp, stride)
+
+
+class _Correlation(torch.autograd.Function):
+    """The custom VJP of vec_vad_tpu's `correlation`
+    (models/flownet/ops.py:317-351): saves only (a, b); the backward is
+    the analytic one, with no recompute of the forward."""
+
+    @staticmethod
+    def forward(ctx, a, b, max_disp, stride):
+        ctx.save_for_backward(a, b)
+        ctx.disp = (max_disp, stride)
+        if _on_cpu(a, b):
+            return correlation_ref(a, b, max_disp, stride)
+        return correlation_kernel(a, b, max_disp, stride)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        grad_a, grad_b = correlation_bwd(a, b, g, *ctx.disp)
+        return grad_a, grad_b, None, None
 
 
 def correlation(
     a: torch.Tensor, b: torch.Tensor, max_disp: int = 20, stride: int = 2
 ) -> torch.Tensor:
-    """FlowNetC cost volume: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors; anything else raises."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return correlation_ref(a, b, max_disp, stride)
-    return correlation_kernel(a, b, max_disp, stride)
+    """FlowNetC cost volume, differentiable in a and b: K1 forward and K2
+    backward on CUDA tensors, the plain versions on CPU tensors; anything
+    else raises."""
+    return _Correlation.apply(a, b, max_disp, stride)
 
 
 # ---------------------------------------------------------------------------
@@ -167,8 +224,10 @@ def warp_bilinear(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     y0 = torch.floor(yf)
     alpha = (xf - x0).unsqueeze(-1)
     beta = (yf - y0).unsqueeze(-1)
-    xl = x0.long()
-    yt = y0.long()
+    # in range already unless the flow is NaN: then the output is NaN and
+    # the gather stays in bounds (a device-side assert on the card)
+    xl = x0.long().clamp(0, W - 1)
+    yt = y0.long().clamp(0, H - 1)
     xr = torch.clamp(xl + 1, max=W - 1)
     yb = torch.clamp(yt + 1, max=H - 1)
     flat = img.reshape(B, H * W, C)
@@ -191,10 +250,27 @@ def warp_bilinear(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class _ChannelNorm(torch.autograd.Function):
+    """The reference op's forward and its backward g·x/(‖x‖+1e-9)
+    (ChannelNorm_kernel.cu:54-81): finite where x is 0 at a pixel, where
+    the derivative of sqrt is infinite and autodiff gives NaN."""
+
+    @staticmethod
+    def forward(ctx, x):
+        norm = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+        ctx.save_for_backward(x, norm)
+        return norm
+
+    @staticmethod
+    def backward(ctx, g):
+        x, norm = ctx.saved_tensors
+        return g * x / (norm + 1e-9)
+
+
 def channel_norm(x: torch.Tensor) -> torch.Tensor:
     """Per-pixel L2 norm over channels -> (..., 1)
-    (ChannelNorm_kernel.cu:19-51)."""
-    return torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    (ChannelNorm_kernel.cu:19-81)."""
+    return _ChannelNorm.apply(x)
 
 
 def upsample_bilinear(
