@@ -8,13 +8,16 @@ live-flow two-stream slice end to end at full width, and trains FlowNetC
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. the card (nvidia-smi name and power limit); TF32 off for cuDNN and
      matmul, so every comparison below is full f32; both kernel sources
-     built at once (one nvcc each);
+     built at once (one nvcc each), with ptxas's registers, spills and
+     shared memory for each kernel instantiation;
   2. kernels: K1 (csrc/correlation.cu) against `correlation_ref` at the
      serving shape (1, 48, 64, 256) and the training shape (8, 48, 64,
      256) in f32 and bf16 and at a ragged shape; K2
      (csrc/correlation_bwd.cu) against `correlation_bwd_ref` at the
-     training shape in f32 and bf16 and at a ragged shape. CUDA-event
-     times beside the card's bound for the same work;
+     training shape, at FlowNet2 fine-tuning's batch-1 shape (1, 48, 64,
+     256) and at a ragged shape, each in f32 and bf16. CUDA-event times
+     beside the card's bound for the same work; the {"kernels": [...]}
+     record keeps each kernel's first case (K1 serving, K2 training, f32);
   3. serving: FlowStreamingScorer on the card at UCSDped2's 240x360 with
      the 384x512 FlowNet2 protocol, a random-init FlowNet2 and a random
      5raw1of nf=32 two-stream model (numpy seeds), over seeded synthetic
@@ -23,7 +26,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      version, and the first video's first 4 scores against the same
      stream served on the CPU; then per-push latency, the time split
      between FlowNet2 and STC + ensemble, and a torch.profiler table of
-     one more video's live pushes with the device's busy share;
+     one more video's live pushes with the device's busy share and K1's
+     share of it;
   4. training: FlowHarness.fit of the full FlowNetC (the `flow-train
      --net FlowNetC --loss multiscale` recipe: batch 8, Adam lr 1e-4)
      for 2 epochs over 16 seeded synthetic 384x512 pairs (smooth textures
@@ -33,9 +37,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      real step's (a, b, g), taken by module hooks, against the plain
      versions; then ms per step over 24 steady steps, pairs/s, peak
      device memory and a torch.profiler table of a few steps with the
-     device's busy share. Then 20 single-scale L1 steps of
-     PairMajorAdapter(FlowNet2) at batch 1, one K1 and one K2 launch
-     each.
+     device's busy share and K1's and K2's shares of it. Then 20
+     single-scale L1 steps of PairMajorAdapter(FlowNet2) at batch 1, one
+     K1 and one K2 launch each.
 
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
@@ -45,6 +49,7 @@ before it the {"kernels": [...]} record, and the last line
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -210,9 +215,11 @@ def check_bwd(a, b, g, dtype) -> float:
 
 
 def kernel_bwd_phase(rng) -> dict:
-    """K2 against correlation_bwd_ref on the card; returns the
+    """K2 against correlation_bwd_ref on the card at the training shape,
+    FlowNet2 fine-tuning's batch-1 shape and a ragged shape; returns the
     training-shape f32 record."""
     cases = [(TRAIN_SHAPE, torch.float32), (TRAIN_SHAPE, torch.bfloat16),
+             (SERVE_SHAPE, torch.float32), (SERVE_SHAPE, torch.bfloat16),
              (RAGGED_SHAPE, torch.float32), (RAGGED_SHAPE, torch.bfloat16)]
     record = None
     for shape, dtype in cases:
@@ -298,6 +305,20 @@ def serve(scorer, videos, sync=lambda: None):
     return scores, lat, live
 
 
+def kernel_shares(ev, busy_us: float) -> str:
+    """K1's and K2's device time in a profile's key averages, and their
+    share of the device's busy time."""
+    from torch.autograd import DeviceType
+
+    parts = []
+    for name, key in (("K1", "corr_fwd_kernel"), ("K2", "corr_bwd_kernel")):
+        rows = [e for e in ev if e.device_type == DeviceType.CUDA and key in e.key]
+        us = sum(e.self_device_time_total for e in rows)
+        parts.append(f"{name} {us / 1e3:.3f} ms in {sum(e.count for e in rows)} "
+                     f"launches ({100 * us / busy_us:.2f} %)")
+    return ", ".join(parts)
+
+
 def profile_pushes(scorer, frames, boxes, warm: int = 3) -> None:
     """torch.profiler over the live pushes of one video after `warm`
     pushes: device time by operator and the device's busy share."""
@@ -320,7 +341,8 @@ def profile_pushes(scorer, frames, boxes, warm: int = 3) -> None:
                   if e.device_type == DeviceType.CUDA)
     print(ev.table(sort_by="self_device_time_total", row_limit=25))
     print(f"profile: {len(frames) - warm} live pushes, wall {wall_us / 1e3:.3f} ms, "
-          f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %)")
+          f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %); "
+          f"{kernel_shares(ev, busy_us)}")
 
 
 class SyntheticPairs:
@@ -376,7 +398,8 @@ def profile_steps(trainer, batches) -> None:
                   if e.device_type == DeviceType.CUDA)
     print(ev.table(sort_by="self_device_time_total", row_limit=25))
     print(f"train profile: {len(batches)} steps, wall {wall_us / 1e3:.3f} ms, "
-          f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %)")
+          f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %); "
+          f"{kernel_shares(ev, busy_us)}")
 
 
 def step_stats(ms) -> str:
@@ -544,6 +567,9 @@ def main() -> int:
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '\w*?(corr_\w+?_kernel)I(\w+?)EEv", line)
+            if entry:  # the instantiation, by its mangled template arguments
+                print(f"  {name}: {entry.group(1)}<{entry.group(2)}>")
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 

@@ -93,8 +93,13 @@ def test_correlation_kernel_refuses_what_it_cannot_run(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,max_disp,stride", [
     ((8, 48, 64, 256), 20, 2),   # the training shape (FlowNetC conv3, batch 8)
+    ((1, 48, 64, 256), 20, 2),   # FlowNet2 fine-tuning's batch 1
     ((2, 13, 30, 48), 20, 2),    # ragged H, C != 256, W not a tile multiple
-    ((3, 7, 70, 33), 4, 1),      # small displacement grid, odd C
+    ((3, 7, 70, 33), 4, 1),      # small displacement grid, odd C (scalar loads)
+    ((1, 5, 9, 20), 20, 2),      # odd W under one pixel span, displacements wider than the frame
+    ((2, 6, 40, 200), 20, 2),    # C above one 128-channel group, not a multiple of it
+    ((2, 9, 50, 64), 6, 3),      # stride 3: three residues of x a block, idle warps
+    ((1, 5, 37, 8), 10, 10),     # stride 10: residue groups across blocks, n = 3
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_correlation_bwd_kernel_matches_plain(cuda, shape, max_disp, stride, dtype):
