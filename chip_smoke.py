@@ -18,6 +18,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      256) and at a ragged shape, each in f32 and bf16. CUDA-event times
      beside the card's bound for the same work; the {"kernels": [...]}
      record keeps each kernel's first case (K1 serving, K2 training, f32);
+     K1 also at calc-flow's f32 batch (4, 48, 64, 256);
   3. serving: FlowStreamingScorer on the card at UCSDped2's 240x360 with
      the 384x512 FlowNet2 protocol, a random-init FlowNet2 and a random
      5raw1of nf=32 two-stream model (numpy seeds), over seeded synthetic
@@ -39,7 +40,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      device memory and a torch.profiler table of a few steps with the
      device's busy share and K1's and K2's shares of it. Then 20
      single-scale L1 steps of PairMajorAdapter(FlowNet2) at batch 1, one
-     K1 and one K2 launch each.
+     K1 and one K2 launch each;
+  5. calc-flow: `runner.run_calc_flow` on the card over a seeded synthetic
+     UCSD-layout tree of .npy uint8 frames at 240x360 (148 frames in a
+     Train and a Test split, one video of 2 frames) with the random-init
+     FlowNet2 at the 384x512 protocol, three times: f32 whole-split
+     (chunk 4), f32 segmented (24 frames a segment, a segment boundary
+     inside a video) and bf16 (chunk 8). Checks a finite (240, 360, 2)
+     float32 .npy for every frame, one K1 launch per FlowNet2 batch, the
+     segmented and bf16 trees against the f32 whole-split tree, the
+     2-frame video's maps on the card against the CPU's, and K1 on a real
+     batch's conv3 features; prints maps/s with the time split into
+     decode, FlowNet2 batches and .npy writes, peak device memory, the
+     2-frame video's drift with cuDNN's TF32 on, and a torch.profiler
+     table of a few calc-flow batches.
 
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
@@ -48,6 +62,7 @@ before it the {"kernels": [...]} record, and the last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -59,10 +74,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vec_vad_torch import kernels
+from vec_vad_torch import config, kernels, runner
 from vec_vad_torch.cli import make_flow_net
 from vec_vad_torch.config import CompletionConfig, ForegroundConfig, PipelineConfig
+from vec_vad_torch.data import readers
 from vec_vad_torch.data.synthetic import make_synthetic_dataset
+from vec_vad_torch.data.video_index import VideoIndex
+from vec_vad_torch.flow import driver
 from vec_vad_torch.flow.harness import FlowHarness
 from vec_vad_torch.flow.trainer import FlowTrainer
 from vec_vad_torch.models.completion import init_completion_state, make_completion_net
@@ -77,11 +95,18 @@ FLOW_HW = (384, 512)  # the FlowNet2 protocol
 VIDEO_LENGTHS = (16, 16, 2)  # the 2-frame video exercises the tail rule
 SERVE_SHAPE = (1, 48, 64, 256)  # FlowNetC conv3 features at 384x512
 TRAIN_SHAPE = (8, 48, 64, 256)  # the same at the training batch of 8
+CALC_SHAPE = (4, 48, 64, 256)  # the same in a calc-flow f32 batch of 4
 RAGGED_SHAPE = (2, 13, 30, 48)
 TRAIN_BATCH, TRAIN_PAIRS, TRAIN_EPOCHS = 8, 16, 2
 TRAIN_STEADY = 24  # timed steps after fit (FlowNetC at batch 8)
 FLOWNET2_STEPS = 20  # timed FlowNet2 fine-tuning steps at batch 1
 WORKDIR = Path(__file__).resolve().parent / "build" / "chip_smoke_flow_train"
+# calc-flow: a UCSD-layout tree of 148 frames; the 2-frame video exercises
+# the first- and last-frame pair rule
+CALC_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_calc_flow"
+CALC_DATASET = "UCSDped2_npy"
+CALC_LENGTHS = {"Train": (40, 36), "Test": (38, 32, 2)}
+CALC_SEGMENT = 24  # frames a segment: Train001's 40 frames span two
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES_S = 3.35e12
@@ -102,6 +127,15 @@ LOSS_REL_TOL = 1e-4
 # rounding may flip by one level, so scores agree to ~1e-4 relative; the
 # bound is ten times that, relative to the largest score
 CPU_REL_TOL = 1e-3
+# calc-flow's segmented tree against its whole-split tree, relative to the
+# largest |flow|: the same uint8 frames in the same batches of 4, yet
+# 3.970e-06 apart on an H100 (not explained yet: the device work is the
+# same); the bound is 25 times that
+SEG_REL_TOL = 1e-4
+# calc-flow in bf16 against f32, relative to the largest |flow| of the f32
+# tree: bf16 weights and activations through FlowNet2's five nets, ~3
+# significant digits a layer; 1.684e-02 observed on an H100, bound 3x that
+BF16_REL_TOL = 0.05
 
 
 def check(ok: bool, what) -> None:
@@ -175,11 +209,12 @@ def check_fwd(a, b) -> float:
 
 
 def kernel_phase(rng) -> dict:
-    """K1 against correlation_ref on the card at the serving and training
-    shapes; returns the serving-shape f32 record, its max_abs_err the
-    largest f32 error at either shape."""
+    """K1 against correlation_ref on the card at the serving, training and
+    calc-flow shapes; returns the serving-shape f32 record, its
+    max_abs_err the largest f32 error at any of them."""
     cases = [(SERVE_SHAPE, torch.float32), (SERVE_SHAPE, torch.bfloat16),
              (TRAIN_SHAPE, torch.float32), (TRAIN_SHAPE, torch.bfloat16),
+             (CALC_SHAPE, torch.float32),
              (RAGGED_SHAPE, torch.float32), (RAGGED_SHAPE, torch.bfloat16)]
     record, f32_err = None, 0.0
     for shape, dtype in cases:
@@ -187,7 +222,7 @@ def kernel_phase(rng) -> dict:
         err = check_fwd(a, b)
         if dtype == torch.float32 and shape != RAGGED_SHAPE:
             f32_err = max(f32_err, err)
-        big = shape == TRAIN_SHAPE
+        big = shape in (TRAIN_SHAPE, CALC_SHAPE)
         ms = cuda_ms(lambda: fops.correlation(a, b), reps=100 if big else 200)
         plain_ms = cuda_ms(lambda: fops.correlation_ref(a, b), reps=3 if big else 10)
         bound_ms, bound_by = correlation_bound_ms(shape, dtype)
@@ -547,6 +582,204 @@ def flownet2_phase() -> dict:
     return launches
 
 
+def write_calc_tree(root: Path, seed: int) -> None:
+    """CALC_LENGTHS' videos as seeded uint8 .npy frames at FRAME_HW in the
+    UCSD layout (Train/TrainNNN, Test/TestNNN): smooth textures drifting
+    by a whole-pixel step per frame, so the flow has something to find."""
+    rng = np.random.default_rng(seed)
+    H, W = FRAME_HW
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    for split, lengths in CALC_LENGTHS.items():
+        for v, n in enumerate(lengths):
+            d = root / split / f"{split}{v + 1:03d}"
+            d.mkdir(parents=True)
+            f = rng.uniform(4.0, 16.0, (3, 2))
+            phase = rng.uniform(0, 2 * np.pi, (3, 2))
+            u, w = (int(x) for x in rng.integers(-3, 4, 2))
+            for t in range(n):
+                img = np.stack([127 + 60 * np.sin((xx - u * t) / f[c, 0] + phase[c, 0])
+                                + 60 * np.cos((yy - w * t) / f[c, 1] + phase[c, 1])
+                                for c in range(3)], -1)
+                np.save(d / f"{t:03d}.npy", img.round().astype(np.uint8))
+
+
+def flow_batches(n_by_split, chunk: int, segment=None) -> int:
+    """FlowNet2 batches (so K1 launches) of a calc-flow run: each split's
+    frames in batches of `chunk`, or with `segment`, each segment (rounded
+    up to a multiple of chunk) in its own batches."""
+    total = 0
+    for n in n_by_split:
+        seg = -(-segment // chunk) * chunk if segment else n
+        total += sum(-(-min(seg, n - lo) // chunk) for lo in range(0, n, seg))
+    return total
+
+
+def timed_calc_flow(cfg, **kw):
+    """runner.run_calc_flow on the card, synchronised, with the host's
+    frame decode (readers.read_frame) and .npy writes (the writers of
+    driver.flow_tree_writer) timed; launch counts set to 0 just before
+    and read just after. Returns (wall s, decode s, write s, launches)."""
+    spent = {"decode": 0.0, "write": 0.0}
+    read, make_writer = readers.read_frame, driver.flow_tree_writer
+
+    def timed_read(path):
+        t0 = time.perf_counter()
+        out = read(path)
+        spent["decode"] += time.perf_counter() - t0
+        return out
+
+    def timed_writer(*args):
+        write = make_writer(*args)
+
+        def timed_write(i, flow_i):
+            t0 = time.perf_counter()
+            write(i, flow_i)
+            spent["write"] += time.perf_counter() - t0
+
+        return timed_write
+
+    readers.read_frame, driver.flow_tree_writer = timed_read, timed_writer
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner.run_calc_flow(cfg, str(CALC_BASE), device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+    finally:
+        readers.read_frame, driver.flow_tree_writer = read, make_writer
+    return wall, spent["decode"], spent["write"], launches
+
+
+def read_flow_tree(cfg, paths) -> np.ndarray:
+    """The mirrored .npy of every frame path, each checked to be a finite
+    (H, W, 2) float32 map."""
+    raw = CALC_BASE / cfg.raw_dataset_dir / cfg.dataset_name
+    of_root = CALC_BASE / cfg.optical_flow_dir / cfg.dataset_name
+    maps = []
+    for p in paths:
+        m = np.load(of_root / Path(p).relative_to(raw).with_suffix(".npy"))
+        check(m.dtype == np.float32 and m.shape == FRAME_HW + (2,)
+              and np.isfinite(m).all(), f"flow map of {p}: {m.dtype} {m.shape}")
+        maps.append(m)
+    return np.stack(maps)
+
+
+def profile_calc_flow(net, frames, warm: int = 4) -> None:
+    """torch.profiler over compute_optical_flow's batches of 4 (one video
+    of len(frames) frames) after a warm call: device time by operator and
+    the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    driver.compute_optical_flow(net, VideoIndex(["v"], np.array([warm])),
+                                frames[:warm], device="cuda")
+    index = VideoIndex(["v"], np.array([len(frames)]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        driver.compute_optical_flow(net, index, frames, device="cuda")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in ev
+                  if e.device_type == DeviceType.CUDA)
+    print(ev.table(sort_by="self_device_time_total", row_limit=20))
+    print(f"calc-flow profile: {len(frames)} maps in {-(-len(frames) // 4)} batches "
+          f"of 4, wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+          f"({100 * busy_us / wall_us:.1f} %); {kernel_shares(ev, busy_us)}")
+
+
+def calc_flow_phase() -> dict:
+    """run_calc_flow on the card over a synthetic UCSD-layout .npy tree:
+    f32 whole-split, f32 segmented and bf16; returns K1's launches in the
+    three runs and its error on a real batch's conv3 features."""
+    shutil.rmtree(CALC_BASE, ignore_errors=True)
+    config.register_dataset(dataclasses.replace(
+        config.DATASETS["UCSDped2"], name=CALC_DATASET, file_ext=".npy"))
+    cfg = PipelineConfig(dataset_name=CALC_DATASET)
+    raw = CALC_BASE / cfg.raw_dataset_dir / CALC_DATASET
+    write_calc_tree(raw, SEED + 6)
+    index = {split: VideoIndex.from_layout(CALC_DATASET, str(raw), split)
+             for split in ("train", "test")}
+    n_by_split = [index[s].total_frames for s in ("train", "test")]
+    n = sum(n_by_split)
+    paths = index["train"].frame_paths + index["test"].frame_paths
+
+    # the runner's FlowNet2, make_flownet2(0, device), built once and
+    # shared by the three runs
+    net = make_flownet2(0, device="cuda")
+    runner.make_flownet2 = lambda seed, device: net
+
+    # the 2-frame video on the card and on the CPU, same seeded weights
+    two = index["test"].video_names[list(index["test"].video_lengths).index(2)]
+    pair_idx = VideoIndex.from_video_dirs([str(raw / "Test" / two)], ".npy")
+    pair = readers.load_frames(pair_idx)
+    card = driver.compute_optical_flow(net, pair_idx, pair, device="cuda")
+    cpu = driver.compute_optical_flow(make_flownet2(0, device="cpu"), pair_idx,
+                                      pair, device="cpu")
+    rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    print(f"calc-flow: 2-frame video card vs CPU max |diff| / max |flow| = "
+          f"{rel:.3e} (bound {CPU_REL_TOL}; max |flow| {np.abs(cpu).max():.4f})")
+    check(card.shape == (2,) + FRAME_HW + (2,) and rel <= CPU_REL_TOL,
+          f"card vs CPU calc-flow maps {card.shape}, rel {rel}")
+    torch.backends.cudnn.allow_tf32 = True  # torch's default
+    tf32 = driver.compute_optical_flow(net, pair_idx, pair, device="cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"calc-flow: 2-frame video with cudnn.allow_tf32=True: max |diff| / "
+          f"max |flow| = {np.abs(tf32 - card).max() / np.abs(card).max():.3e} "
+          f"against TF32 off, {np.abs(tf32 - cpu).max() / np.abs(cpu).max():.3e} "
+          f"against the CPU")
+
+    runs = [("f32 whole-split", dict(), 4, None),
+            ("f32 segmented", dict(segment_frames=CALC_SEGMENT), 4, CALC_SEGMENT),
+            ("bf16 whole-split", dict(flow_dtype="bfloat16"), 8, None)]
+    trees, k1, conv3 = [], 0, []
+    for i, (name, kw, chunk, segment) in enumerate(runs):
+        run_cfg = cfg.replace(optical_flow_dir=f"optical_flow_{i}")
+        hook = None
+        if i == 0:  # conv3's (a, b) of the run's first batch
+            hook = net.flownetc.conv3.register_forward_hook(
+                lambda m, x, out: conv3.append(out.detach().clone())
+                if len(conv3) < 2 else None)
+        torch.cuda.reset_peak_memory_stats()
+        wall, decode, write, launches = timed_calc_flow(run_cfg, **kw)
+        peak = torch.cuda.max_memory_allocated()
+        if hook is not None:
+            hook.remove()
+        want = flow_batches(n_by_split, chunk, segment)
+        print(f"calc-flow {name}: {n} maps (train {n_by_split[0]}, test "
+              f"{n_by_split[1]}) in {wall:.3f} s, {n / wall:.2f} maps/s; decode "
+              f"{decode:.3f} s, FlowNet2 batches (upload and download included) "
+              f"{wall - decode - write:.3f} s, .npy writes {write:.3f} s; launches "
+              f"{launches} for {want} batches of {chunk}; peak device memory "
+              f"{peak / 2**20:.1f} MiB", flush=True)
+        check(launches == {"correlation": want}, f"{name} launches {launches}, {want} batches")
+        k1 += launches["correlation"]
+        trees.append(read_flow_tree(run_cfg, paths))
+
+    scale = float(np.abs(trees[0]).max())
+    seg_rel = float(np.abs(trees[1] - trees[0]).max()) / scale
+    bf16_rel = float(np.abs(trees[2] - trees[0]).max()) / scale
+    mean_rel = float(np.abs(trees[2] - trees[0]).mean()) / scale
+    print(f"calc-flow: max |flow| {scale:.4f}; segmented vs whole-split max |diff| / "
+          f"max |flow| = {seg_rel:.3e} (bound {SEG_REL_TOL}); bf16 vs f32 max "
+          f"{bf16_rel:.3e} (bound {BF16_REL_TOL}), mean {mean_rel:.3e}")
+    check(seg_rel <= SEG_REL_TOL, f"segmented vs whole-split {seg_rel}")
+    check(bf16_rel <= BF16_REL_TOL, f"bf16 vs f32 {bf16_rel}")
+
+    a, b = conv3
+    check(tuple(a.shape) == CALC_SHAPE, f"calc-flow conv3 features {tuple(a.shape)}")
+    hook_err = check_fwd(a.contiguous(), b.contiguous())
+    print(f"calc-flow: K1 on a batch's conv3 features max_abs_err={hook_err:.3e}")
+
+    profile_calc_flow(net, readers.load_frames(index["train"], np.arange(16)))
+    runner.make_flownet2 = make_flownet2
+    shutil.rmtree(CALC_BASE, ignore_errors=True)
+    return dict(launches=k1, fwd_err=hook_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -661,16 +894,21 @@ def main() -> int:
     # -- training phase ------------------------------------------------------
     train = train_phase()
     ft_launches = flownet2_phase()
-    phase_done("training", t_phase)
+    t_phase = phase_done("training", t_phase)
 
-    rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"]))
+    # -- calc-flow phase -----------------------------------------------------
+    calc = calc_flow_phase()
+    phase_done("calc-flow", t_phase)
+
+    rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"],
+                               calc["fwd_err"]))
     rec_bwd.update(max_abs_err=max(rec_bwd["max_abs_err"], train["bwd_err"]))
     k1 = (launches.get("correlation", 0) + train["launches"]["correlation"]
-          + ft_launches["correlation"])
+          + ft_launches["correlation"] + calc["launches"])
     k2 = train["launches"]["correlation_bwd"] + ft_launches["correlation_bwd"]
     print(f"launches on the main paths: K1 {k1} (serving {launches.get('correlation', 0)}, "
           f"FlowNetC training {train['launches']['correlation']}, FlowNet2 steps "
-          f"{ft_launches['correlation']}); K2 {k2}")
+          f"{ft_launches['correlation']}, calc-flow {calc['launches']}); K2 {k2}")
     # no single PyTorch call computes the cost volume or its gradients
     record = {"kernels": [
         {"name": "correlation_fwd", "route": "cuda",

@@ -51,6 +51,7 @@ def _pair(seed, shape):
 @pytest.mark.parametrize("shape,max_disp,stride", [
     ((1, 48, 64, 256), 20, 2),   # the serving shape
     ((8, 48, 64, 256), 20, 2),   # the training shape (FlowNetC conv3, batch 8)
+    ((4, 48, 64, 256), 20, 2),   # calc-flow's f32 batch of 4
     ((2, 13, 30, 48), 20, 2),    # ragged H, C != 256, W not a tile multiple
     ((3, 7, 70, 33), 4, 1),      # small displacement grid, odd C
 ])

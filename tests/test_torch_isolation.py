@@ -3,6 +3,7 @@ blocked, its sources import none of them, its entry points refuse to run
 without a card unless asked for the CPU, and its copied host modules
 equal the JAX package's."""
 
+import ast
 import dataclasses
 import os
 import pkgutil
@@ -179,6 +180,20 @@ def test_host_copies_match_jax_package():
     np.testing.assert_array_equal(a.test_frames, b.test_frames)
     for x, y in zip(a.test_boxes, b.test_boxes):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("name", ["data/video_index.py", "data/readers.py"])
+def test_data_modules_are_copies_of_jax_package(name):
+    """video_index.py and readers.py are copies: the same code as the JAX
+    package's, module docstrings aside, with the package renamed."""
+
+    def code(path, pkg):
+        tree = ast.parse(path.read_text().replace(pkg, "PKG"))
+        assert isinstance(tree.body[0].value, ast.Constant)  # the docstring
+        return ast.dump(ast.Module(body=tree.body[1:], type_ignores=[]))
+
+    assert code(PKG / name, "vec_vad_torch") == \
+        code(ROOT / "vec_vad_tpu" / name, "vec_vad_tpu")
 
 
 def test_kernel_sources_build_by_content():

@@ -1,12 +1,16 @@
-"""The port's command line (vec_vad_tpu/cli.py): `flow-train` and
-`flow-infer`, with vec_vad_tpu's flags and messages plus `--device`
-(the card by default; `--device cpu` runs the plain PyTorch path).
+"""The port's command line (vec_vad_tpu/cli.py): `calc-flow`,
+`flow-train` and `flow-infer`, with vec_vad_tpu's flags and messages plus
+`--device` (the card by default; `--device cpu` runs the plain PyTorch
+path).
 
+    python -m vec_vad_torch calc-flow --config config.cfg --base .
     python -m vec_vad_torch flow-train --data-root TREE --workdir WD \\
         --net FlowNetC --loss multiscale --norm L1
     python -m vec_vad_torch flow-infer --data-root TREE --workdir WD
 
-The other subcommands of vec_vad_tpu are not ported yet (ROADMAP.md).
+calc-flow has no `--no-mesh`: the JAX package's data-parallel mesh is not
+ported. The other subcommands of vec_vad_tpu are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,12 +18,55 @@ from __future__ import annotations
 import argparse
 import os
 
+from vec_vad_torch.config import PipelineConfig, load_ini_config
+
 _FLOW_COMPONENTS = ("FlowNetC", "FlowNetS", "FlowNetSD")
 _FLOW_COMPOSITES = ("FlowNet2", "FlowNet2CS", "FlowNet2CSS")
 _FLOW_DATASETS = (
     "MpiSintel", "FlyingChairs", "ChairsSDHom",
     "FlyingThingsClean", "FlyingThingsFinal", "ImagesFromFolder",
 )
+
+
+def _load_cfg(args) -> PipelineConfig:
+    if args.config:
+        # an explicitly passed path must exist — silently running with
+        # built-in defaults after a typo'd --config writes artifacts for
+        # the wrong dataset. (The no-flag convenience fallback is handled
+        # below: args.config defaults to None.)
+        if not os.path.exists(args.config):
+            raise FileNotFoundError(f"--config {args.config} does not exist")
+        cfg = load_ini_config(args.config)
+    elif os.path.exists("config.cfg"):
+        cfg = load_ini_config("config.cfg")
+    else:
+        cfg = PipelineConfig()
+    if getattr(args, "dataset", None):
+        cfg = cfg.replace(dataset_name=args.dataset)
+    return cfg
+
+
+def _add_common(p):
+    p.add_argument(
+        "--config", default=None,
+        help="INI config path (default: ./config.cfg if present)",
+    )
+    p.add_argument("--base", default=".", help="base dir holding raw_datasets/")
+    p.add_argument("--dataset", default=None, help="override dataset_name")
+
+
+def cmd_calc_flow(args) -> int:
+    from vec_vad_torch.runner import run_calc_flow
+
+    cfg = _load_cfg(args)
+    splits = tuple(args.splits.split(","))
+    run_calc_flow(
+        cfg, args.base, checkpoint=args.checkpoint, splits=splits,
+        resident=args.resident, segment_frames=args.segment_frames or None,
+        chunk=args.chunk or None, flow_dtype=args.flow_dtype,
+        device=args.device,
+    )
+    return 0
 
 
 def make_flow_net(name: str, seed: int = 0, device="cuda"):
@@ -215,6 +262,32 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="vec_vad_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     nets = list(_FLOW_COMPONENTS + _FLOW_COMPOSITES)
+
+    p = sub.add_parser("calc-flow", help="precompute FlowNet2 optical flow")
+    _add_common(p)
+    p.add_argument("--checkpoint", default=None, help="FlowNet2 .pth(.tar)")
+    p.add_argument("--splits", default="train,test")
+    p.add_argument(
+        "--resident", action="store_true",
+        help="keep each split's flow on the device until one download",
+    )
+    p.add_argument(
+        "--segment-frames", type=int, default=0,
+        help="force the memory-bounded segmented path with this segment "
+        "size (0 = auto-route by footprint; oversized splits stream)",
+    )
+    p.add_argument(
+        "--flow-dtype", choices=("float32", "bfloat16"), default="float32",
+        help="FlowNet forward dtype (.npy output is always f32); bfloat16 "
+        "shifts flow values by bf16 rounding",
+    )
+    p.add_argument(
+        "--chunk", type=int, default=0,
+        help="frame pairs per FlowNet batch (0 = per-dtype default: "
+        "4 f32, 8 bf16)",
+    )
+    _add_device(p)
+    p.set_defaults(fn=cmd_calc_flow)
 
     p = sub.add_parser(
         "flow-train",
