@@ -49,11 +49,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      inside a video) and bf16 (chunk 8). Checks a finite (240, 360, 2)
      float32 .npy for every frame, one K1 launch per FlowNet2 batch, the
      segmented and bf16 trees against the f32 whole-split tree, the
-     2-frame video's maps on the card against the CPU's, and K1 on a real
-     batch's conv3 features; prints maps/s with the time split into
-     decode, FlowNet2 batches and .npy writes, peak device memory, the
-     2-frame video's drift with cuDNN's TF32 on, and a torch.profiler
-     table of a few calc-flow batches.
+     2-frame video's maps on the card against the CPU's, straight from
+     the flow driver and, for its (f0, f0) map, through run_calc_flow
+     called with both TF32 flags on (its f32 route turns them off), and
+     K1 on a real batch's conv3 features; prints maps/s with the time
+     split into decode, FlowNet2 batches and .npy writes, peak device
+     memory and a torch.profiler table of a few calc-flow batches.
 
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
@@ -214,7 +215,7 @@ def kernel_phase(rng) -> dict:
     max_abs_err the largest f32 error at any of them."""
     cases = [(SERVE_SHAPE, torch.float32), (SERVE_SHAPE, torch.bfloat16),
              (TRAIN_SHAPE, torch.float32), (TRAIN_SHAPE, torch.bfloat16),
-             (CALC_SHAPE, torch.float32),
+             (CALC_SHAPE, torch.float32), (CALC_SHAPE, torch.bfloat16),
              (RAGGED_SHAPE, torch.float32), (RAGGED_SHAPE, torch.bfloat16)]
     record, f32_err = None, 0.0
     for shape, dtype in cases:
@@ -226,9 +227,15 @@ def kernel_phase(rng) -> dict:
         ms = cuda_ms(lambda: fops.correlation(a, b), reps=100 if big else 200)
         plain_ms = cuda_ms(lambda: fops.correlation_ref(a, b), reps=3 if big else 10)
         bound_ms, bound_by = correlation_bound_ms(shape, dtype)
+        ratio = f"{ms / bound_ms:.2f}x the bound"
+        if dtype != torch.float32:
+            # the bf16 bound prices the tensor cores; a CUDA-core kernel is
+            # read against the f32 operations bound
+            f32_bound = correlation_bound_ms(shape, torch.float32)[0]
+            ratio += f"; f32-operations bound {f32_bound:.6f} ms, {ms / f32_bound:.2f}x"
         print(f"kernel correlation {tuple(shape)} {str(dtype)[6:]}: "
               f"max_abs_err={err:.3e} ms={ms:.6f} plain_ms={plain_ms:.6f} "
-              f"bound_ms={bound_ms:.6f} ({bound_by})", flush=True)
+              f"bound_ms={bound_ms:.6f} ({bound_by}), {ratio}", flush=True)
         if record is None:
             record = dict(ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
@@ -266,7 +273,8 @@ def kernel_bwd_phase(rng) -> dict:
         bound_ms, bound_by = correlation_bound_ms(shape, dtype, backward=True)
         print(f"kernel correlation_bwd {tuple(shape)} {str(dtype)[6:]}: "
               f"max_abs_err={err:.3e} ms={ms:.6f} plain_ms={plain_ms:.6f} "
-              f"bound_ms={bound_ms:.6f} ({bound_by})", flush=True)
+              f"bound_ms={bound_ms:.6f} ({bound_by}), {ms / bound_ms:.2f}x the bound",
+              flush=True)
         if record is None:
             record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
@@ -346,7 +354,7 @@ def kernel_shares(ev, busy_us: float) -> str:
     from torch.autograd import DeviceType
 
     parts = []
-    for name, key in (("K1", "corr_fwd_kernel"), ("K2", "corr_bwd_kernel")):
+    for name, key in (("K1", "corr_fwd_"), ("K2", "corr_bwd_kernel")):
         rows = [e for e in ev if e.device_type == DeviceType.CUDA and key in e.key]
         us = sum(e.self_device_time_total for e in rows)
         parts.append(f"{name} {us / 1e3:.3f} ms in {sum(e.count for e in rows)} "
@@ -724,18 +732,14 @@ def calc_flow_phase() -> dict:
           f"{rel:.3e} (bound {CPU_REL_TOL}; max |flow| {np.abs(cpu).max():.4f})")
     check(card.shape == (2,) + FRAME_HW + (2,) and rel <= CPU_REL_TOL,
           f"card vs CPU calc-flow maps {card.shape}, rel {rel}")
-    torch.backends.cudnn.allow_tf32 = True  # torch's default
-    tf32 = driver.compute_optical_flow(net, pair_idx, pair, device="cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"calc-flow: 2-frame video with cudnn.allow_tf32=True: max |diff| / "
-          f"max |flow| = {np.abs(tf32 - card).max() / np.abs(card).max():.3e} "
-          f"against TF32 off, {np.abs(tf32 - cpu).max() / np.abs(cpu).max():.3e} "
-          f"against the CPU")
 
+    # the three runs with both TF32 flags on (cuDNN's is torch's default):
+    # run_calc_flow's f32 route turns them off itself
     runs = [("f32 whole-split", dict(), 4, None),
             ("f32 segmented", dict(segment_frames=CALC_SEGMENT), 4, CALC_SEGMENT),
             ("bf16 whole-split", dict(flow_dtype="bfloat16"), 8, None)]
     trees, k1, conv3 = [], 0, []
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     for i, (name, kw, chunk, segment) in enumerate(runs):
         run_cfg = cfg.replace(optical_flow_dir=f"optical_flow_{i}")
         hook = None
@@ -758,6 +762,21 @@ def calc_flow_phase() -> dict:
         check(launches == {"correlation": want}, f"{name} launches {launches}, {want} batches")
         k1 += launches["correlation"]
         trees.append(read_flow_tree(run_cfg, paths))
+    check(torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32,
+          "run_calc_flow did not give the caller's TF32 flags back")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    # the 2-frame video's first map, pair (f0, f0), through run_calc_flow
+    # with the TF32 flags on, against the CPU's. (Alone, the video's index
+    # clips both windows to the array, so both its maps are (f0, f0); in
+    # the split its second map is (f0, f1).)
+    at = [i for i, p in enumerate(paths) if Path(p).parent == raw / "Test" / two]
+    check(len(at) == 2, f"the 2-frame video's frames in the tree: {at}")
+    rel_tf32 = float(np.abs(trees[0][at[0]] - cpu[0]).max() / np.abs(cpu[0]).max())
+    print(f"calc-flow: 2-frame video's map of (f0, f0) through run_calc_flow with both "
+          f"TF32 flags on: max |diff| / max |flow| = {rel_tf32:.3e} against the CPU "
+          f"(bound {CPU_REL_TOL})")
+    check(rel_tf32 <= CPU_REL_TOL, f"run_calc_flow with TF32 flags on vs CPU {rel_tf32}")
 
     scale = float(np.abs(trees[0]).max())
     seg_rel = float(np.abs(trees[1] - trees[0]).max()) / scale

@@ -53,7 +53,11 @@ def _pair(seed, shape):
     ((8, 48, 64, 256), 20, 2),   # the training shape (FlowNetC conv3, batch 8)
     ((4, 48, 64, 256), 20, 2),   # calc-flow's f32 batch of 4
     ((2, 13, 30, 48), 20, 2),    # ragged H, C != 256, W not a tile multiple
-    ((3, 7, 70, 33), 4, 1),      # small displacement grid, odd C
+    ((3, 7, 70, 33), 4, 1),      # small displacement grid, odd C (the general kernel)
+    ((1, 5, 9, 20), 20, 2),      # H and W under one displacement span, C = 20
+    ((2, 12, 70, 256), 20, 2),   # W not a multiple of any x-tile
+    ((1, 48, 64, 4), 20, 2),     # the smallest vector C
+    ((2, 13, 30, 33), 20, 2),    # FlowNetC's grid with odd C: the general kernel
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_correlation_kernel_matches_plain(cuda, shape, max_disp, stride, dtype):

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -25,3 +27,23 @@ def resolve_device(device="cuda") -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@contextlib.contextmanager
+def full_f32(dtype=torch.float32):
+    """For the duration of the block, f32 convolutions and matmuls on the
+    card in full f32: cuDNN's TF32 (on by torch's default) and matmul's
+    TF32 off, the caller's settings restored after. TF32 keeps about three
+    decimal digits, which moves FlowNet2's flow past the 1e-3 bound that
+    holds the card to the f32 computation on the CPU. Any other `dtype`
+    (a bf16 route) leaves both settings as they are."""
+    if dtype != torch.float32:
+        yield
+        return
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from vec_vad_torch.device import resolve_device
+from vec_vad_torch.device import full_f32, resolve_device
 from vec_vad_torch.flow.losses import multiscale_loss, single_scale_loss
 
 
@@ -124,8 +124,9 @@ class FlowTrainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        loss, epe_v = self.loss(self.to_device(pairs), self.to_device(target))
-        loss.backward()
+        with full_f32():  # f32 batches: no TF32 in cuDNN's convolutions
+            loss, epe_v = self.loss(self.to_device(pairs), self.to_device(target))
+            loss.backward()
         self.optimizer.step()
         self.step_count += 1
         return {"loss": loss.detach(), "epe": epe_v.detach()}

@@ -21,7 +21,7 @@ import torch
 from vec_vad_torch.config import PipelineConfig
 from vec_vad_torch.data.readers import LazyFrameStack
 from vec_vad_torch.data.video_index import VideoIndex
-from vec_vad_torch.device import resolve_device
+from vec_vad_torch.device import full_f32, resolve_device
 from vec_vad_torch.models.flownet import load_flownet_checkpoint, make_flownet2
 
 _FLOW_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -83,34 +83,35 @@ def run_calc_flow(
 
     root = _dataset_root(cfg, base)
     of_root = os.path.join(base, cfg.optical_flow_dir, cfg.dataset_name)
-    for split in splits:
-        index = VideoIndex.from_layout(
-            cfg.dataset_name, root, split, cfg.dataset.file_ext
-        )
-        lazy = LazyFrameStack(index)
-        n = index.total_frames
-        # frames (uint8) + flow (2 x f32) for the whole split
-        footprint = float(np.prod(lazy.shape)) * (1.0 + 8.0 / lazy.shape[-1])
-        if (segment_frames or footprint > memory_budget_bytes
-                or n > max_whole_split_frames):
-            seg = segment_frames or min(
-                max_whole_split_frames,
-                max(chunk, int(memory_budget_bytes // (footprint / n)) // 2),
+    with full_f32(dtype):  # f32: no TF32 in cuDNN's convolutions
+        for split in splits:
+            index = VideoIndex.from_layout(
+                cfg.dataset_name, root, split, cfg.dataset.file_ext
             )
-            write = flow_tree_writer(index, of_root, root)
-            compute_optical_flow_segmented(
-                net, index, lazy, write, segment_frames=seg, chunk=chunk,
-                compute_dtype=dtype, device=dev,
-            )
-            print(
-                f"{split}: wrote {n} flow maps to {of_root} "
-                f"(segmented, {seg} frames/segment)"
-            )
-        else:
-            frames = np.asarray(lazy)
-            flow = compute_optical_flow(
-                net, index, frames, chunk=chunk, resident=resident,
-                compute_dtype=dtype, device=dev,
-            )
-            save_flow_tree(flow, index, of_root, root)
-            print(f"{split}: wrote {flow.shape[0]} flow maps to {of_root}")
+            lazy = LazyFrameStack(index)
+            n = index.total_frames
+            # frames (uint8) + flow (2 x f32) for the whole split
+            footprint = float(np.prod(lazy.shape)) * (1.0 + 8.0 / lazy.shape[-1])
+            if (segment_frames or footprint > memory_budget_bytes
+                    or n > max_whole_split_frames):
+                seg = segment_frames or min(
+                    max_whole_split_frames,
+                    max(chunk, int(memory_budget_bytes // (footprint / n)) // 2),
+                )
+                write = flow_tree_writer(index, of_root, root)
+                compute_optical_flow_segmented(
+                    net, index, lazy, write, segment_frames=seg, chunk=chunk,
+                    compute_dtype=dtype, device=dev,
+                )
+                print(
+                    f"{split}: wrote {n} flow maps to {of_root} "
+                    f"(segmented, {seg} frames/segment)"
+                )
+            else:
+                frames = np.asarray(lazy)
+                flow = compute_optical_flow(
+                    net, index, frames, chunk=chunk, resident=resident,
+                    compute_dtype=dtype, device=dev,
+                )
+                save_flow_tree(flow, index, of_root, root)
+                print(f"{split}: wrote {flow.shape[0]} flow maps to {of_root}")

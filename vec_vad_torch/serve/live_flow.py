@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vec_vad_torch.device import full_f32
 from vec_vad_torch.flow.driver import cast_flow_net, resize_bilinear
 from vec_vad_torch.serve._common import _predict_window
 from vec_vad_torch.serve.streaming import StreamingScorer
@@ -88,11 +89,13 @@ class FlowStreamingScorer(StreamingScorer):
         mh, mw = self._flow_hw
         pair = self._ring.index_select(0, pair_t)  # (2, H, W, 3) uint8
         # the driver's protocol (flow/driver.py run_chunk): cv2-parity
-        # resize to the model size, forward, resize back WITHOUT rescaling
-        pr = resize_bilinear(pair, mh, mw).to(self._flow_dtype)
-        flow = self.flow_net(pr[None]).float()
-        self._flow_ring[of_slot] = resize_bilinear(flow, H, W)[0]
-        return self._score_from_rings(win_t, owin_t, boxes_pad)
+        # resize to the model size, forward, resize back WITHOUT rescaling;
+        # an f32 route runs with TF32 off
+        with full_f32(self._flow_dtype):
+            pr = resize_bilinear(pair, mh, mw).to(self._flow_dtype)
+            flow = self.flow_net(pr[None]).float()
+            self._flow_ring[of_slot] = resize_bilinear(flow, H, W)[0]
+            return self._score_from_rings(win_t, owin_t, boxes_pad)
 
     # -- streaming API ---------------------------------------------------
 
