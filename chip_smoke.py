@@ -56,6 +56,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      split into decode, FlowNet2 batches and .npy writes, peak device
      memory and a torch.profiler table of a few calc-flow batches.
 
+  6. train-test: the raw-only main path (`train` then the card-side steps
+     of `test`) at the flagship width, 5raw nf=32, patch 32, batch 128,
+     10 epochs, Adam lr 1e-3 / eps 1e-7, over a seeded synthetic
+     UCSD-layout tree of uint8 .npy frames at 240x360 with UCSDped2's
+     frame counts (Train 16 videos, 2,550 frames; Test 12 videos, 2,010)
+     and the generator's boxes as the bbox fixtures. `runner.run_train`
+     on the card, then `load_split`, extraction, `score_cubes` and
+     `frame_level_scores` for the test split, `evaluate_frame_scores` on
+     the generator's labels (the card's machine has no cv2 to read UCSD's
+     .bmp masks) and `infer_frame_scores_resident` on the same model.
+     Checks the first step's loss against the CPU's (1e-4 relative),
+     finite falling losses, the trained block's scores on 512 cubes
+     against the CPU's (1e-4 of the largest), resident against offline
+     frame scores (2e-4), the saved .npz scoring the same after
+     `load_vad_model`, a finite AUROC and no K1 or K2 launch; prints
+     cube counts, extraction s, training wall, ms per step, cubes/s,
+     scoring frames/s both ways, peak device memory and torch.profiler
+     tables of training steps and of one resident scoring call.
+
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
 {"ok": true, "device": {...}}.
@@ -75,7 +94,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vec_vad_torch import config, kernels, runner
+from vec_vad_torch import config, kernels, pipeline, runner
 from vec_vad_torch.cli import make_flow_net
 from vec_vad_torch.config import CompletionConfig, ForegroundConfig, PipelineConfig
 from vec_vad_torch.data import readers
@@ -84,11 +103,15 @@ from vec_vad_torch.data.video_index import VideoIndex
 from vec_vad_torch.flow import driver
 from vec_vad_torch.flow.harness import FlowHarness
 from vec_vad_torch.flow.trainer import FlowTrainer
+from vec_vad_torch.infer import infer_frame_scores_resident
 from vec_vad_torch.models.completion import init_completion_state, make_completion_net
 from vec_vad_torch.models.flownet import make_flownet2
 from vec_vad_torch.models.flownet import ops as fops
+from vec_vad_torch.ops.stc import pad_boxes
 from vec_vad_torch.pipeline import TrainedBlock, VadModel
+from vec_vad_torch.runtime.artifacts import load_vad_model
 from vec_vad_torch.serve import FlowStreamingScorer
+from vec_vad_torch.train.trainer import BlockTrainer
 
 SEED = 0
 FRAME_HW = (240, 360)  # UCSDped2
@@ -108,6 +131,20 @@ CALC_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_calc_flow"
 CALC_DATASET = "UCSDped2_npy"
 CALC_LENGTHS = {"Train": (40, 36), "Test": (38, 32, 2)}
 CALC_SEGMENT = 24  # frames a segment: Train001's 40 frames span two
+# train-test: a UCSD-layout tree with UCSDped2's frame counts at 240x360
+TT_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_train_test"
+TT_LENGTHS = {"Train": (160,) * 15 + (150,), "Test": (168,) * 11 + (162,)}
+# the flagship raw-only model: 5raw, nf=32, patch 32, batch 128, 10 epochs
+TT_CFG = PipelineConfig(
+    dataset_name="UCSDped2_npy", fore=ForegroundConfig(patch_size=32),
+    model=CompletionConfig(nf=32, context_frame_num=4, context_of_num=0,
+                           use_flow=False, border_mode="predict"),
+)
+TT_STEADY = 30  # timed training steps at batch 128 after run_train
+TT_SUBSET = 512  # cubes scored on the card and on the CPU
+# resident vs offline frame scores (PARITY.md:26): the same cubes and
+# weights, the ensemble run at batches of 2048 against 128
+RESIDENT_TOL = 2e-4
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES_S = 3.35e12
@@ -799,6 +836,255 @@ def calc_flow_phase() -> dict:
     return dict(launches=k1, fwd_err=hook_err)
 
 
+def write_train_test_tree(root: Path, seed: int, lengths=None, frame_hw=None,
+                          masks: bool = False):
+    """`lengths`' videos (default TT_LENGTHS) from the synthetic generator
+    (moving squares at `frame_hw`, default FRAME_HW; anomalous squares in
+    every other test video) as uint8 .npy frames in the UCSD layout, with
+    the generator's boxes as the bboxes_{train,test}_obj_det_with_motion.npy
+    fixtures; `masks` also writes the test split's .bmp label masks (needs
+    cv2). Returns the test split's frame labels."""
+    lengths = lengths or TT_LENGTHS
+    tr, te = lengths["Train"], lengths["Test"]
+    fpv = max(tr + te)
+    frame_hw = frame_hw or FRAME_HW
+    ds = make_synthetic_dataset(frames_per_video=fpv, n_train_videos=len(tr),
+                                n_test_videos=len(te), frame_h=frame_hw[0],
+                                frame_w=frame_hw[1], seed=seed)
+    labels = []
+    for split, lengths, frames, boxes in (("Train", tr, ds.train_frames, ds.train_boxes),
+                                          ("Test", te, ds.test_frames, ds.test_boxes)):
+        kept = []
+        for v, n in enumerate(lengths):
+            d = root / split / f"{split}{v + 1:03d}"
+            d.mkdir(parents=True)
+            for t in range(n):
+                np.save(d / f"{t:03d}.npy", frames[v * fpv + t])
+                kept.append(boxes[v * fpv + t])
+            if split == "Test":
+                labels.append(ds.test_labels[v * fpv: v * fpv + n])
+            if split == "Test" and masks:
+                import cv2
+
+                gt = root / split / f"{split}{v + 1:03d}_gt"
+                gt.mkdir()
+                for t in range(n):
+                    mask = np.full(frame_hw, 255 * labels[-1][t], np.uint8)
+                    cv2.imwrite(str(gt / f"{t:03d}.bmp"), mask)
+        fixture = np.empty(len(kept), dtype=object)
+        fixture[:] = kept
+        np.save(root / f"bboxes_{split.lower()}_obj_det_with_motion.npy", fixture,
+                allow_pickle=True)
+    return np.concatenate(labels)
+
+
+def device_busy_us(prof) -> float:
+    """The union of a profile's device intervals (kernels, copies), us.
+    Summed self device times count cuDNN's kernels twice, under the kernel
+    and under its aten op, so they can exceed the wall; the union cannot."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("aten::"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def profile_calls(label: str, fn, rows: int = 15) -> None:
+    """torch.profiler over fn(): device time by operator and the device's
+    busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = device_busy_us(prof)
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=rows))
+    print(f"{label} profile: wall {wall_us / 1e3:.3f} ms, device busy (union of "
+          f"kernel and copy intervals) {busy_us / 1e3:.3f} ms "
+          f"({100 * busy_us / wall_us:.1f} %)", flush=True)
+
+
+def timed(fn):
+    """(fn(), synchronised wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_test_phase() -> None:
+    """The raw-only main path on the card: run_train, the card-side steps
+    of run_test and the resident scorer, each checked (module docstring,
+    phase 6)."""
+    shutil.rmtree(TT_BASE, ignore_errors=True)
+    cfg, mc = TT_CFG, TT_CFG.model
+    config.register_dataset(dataclasses.replace(
+        config.DATASETS["UCSDped2"], name=cfg.dataset_name, file_ext=".npy"))
+    dev = runner.resolve_device("cuda")
+    t0 = time.perf_counter()
+    labels = write_train_test_tree(TT_BASE / cfg.raw_dataset_dir / cfg.dataset_name,
+                                   SEED + 7)
+    print(f"train-test: wrote {sum(TT_LENGTHS['Train'])} train and "
+          f"{sum(TT_LENGTHS['Test'])} test frames at {FRAME_HW} in "
+          f"{time.perf_counter() - t0:.1f} s (set-up)", flush=True)
+
+    # the main path: train, counts read just before and just after
+    extract_s = {}
+    extract = pipeline.extract_cube_set
+
+    def timed_extract(*a, **k):  # run_train's extraction, synchronised
+        out, extract_s[len(extract_s)] = timed(lambda: extract(*a, **k))
+        return out
+
+    pipeline.extract_cube_set = runner.extract_cube_set = timed_extract
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    (model, path), wall = timed(lambda: runner.run_train(cfg, str(TT_BASE), seed=SEED,
+                                                          device=dev))
+    train_launches = dict(kernels.launch_counts)
+    pipeline.extract_cube_set = runner.extract_cube_set = extract
+    check(sorted(model.blocks) == [(0, 0, 0)], f"trained blocks {sorted(model.blocks)}")
+    block = model.blocks[(0, 0, 0)]
+    n_train = block.raw_scores.size
+    steps = block.losses.size
+    per_epoch = -(-n_train // mc.batch_size)
+    first, last = block.losses[:per_epoch].mean(), block.losses[-per_epoch:].mean()
+    print(f"train-test: run_train {n_train} train cubes, {steps} steps in {mc.epochs} "
+          f"epochs, {wall:.2f} s wall (extraction {extract_s[0]:.2f} s, cube cache "
+          f"write and model save included); mean loss epoch 1 {first:.6f}, epoch "
+          f"{mc.epochs} {last:.6f}; launches {train_launches}", flush=True)
+    check(steps == mc.epochs * per_epoch and np.isfinite(block.losses).all(),
+          f"{steps} losses, finite {np.isfinite(block.losses).all()}")
+    check(last < first, f"losses do not fall: {first} -> {last}")
+
+    # the card-side steps of run_test
+    kernels.reset_launch_counts()
+    data, load_s = timed(lambda: runner.load_split(cfg, str(TT_BASE), "test"))
+    test_cubes, test_extract_s = timed(lambda: runner._extract_cached(
+        cfg, str(TT_BASE), "test", data, cfg.fore.test_block_mode, dev))
+    n_frames = data.index.total_frames
+    cube_scores, score_s = timed(lambda: pipeline.score_cubes(model, test_cubes,
+                                                              device=dev))
+    frame_scores = pipeline.frame_level_scores(cube_scores, test_cubes, n_frames)
+    results = TT_BASE / "results"
+    results.mkdir(parents=True, exist_ok=True)
+    res = runner.evaluate_frame_scores(cfg, str(results), frame_scores, labels,
+                                       data.index.scene_idx)
+    print(f"train-test: test split {n_frames} frames, {test_cubes.size} cubes; "
+          f"load_split {load_s:.2f} s, extraction {test_extract_s:.2f} s, score_cubes "
+          f"{score_s:.3f} s ({n_frames / score_s:.1f} frames/s offline, "
+          f"{n_frames / (test_extract_s + score_s):.1f} with extraction); "
+          f"AUROC {res['auroc']:.6f}", flush=True)
+    check(np.isfinite(frame_scores).all() and frame_scores.shape == (n_frames,),
+          f"frame scores {frame_scores.shape}")
+    check(np.isfinite(res["auroc"]), f"AUROC {res['auroc']}")
+
+    # the resident scorer on the same model and frames
+    frames_np = np.asarray(data.frames)
+    windows = data.index.context_indices(mc.context_frame_num, mc.border_mode)
+    peak_boxes = max(len(b) for b in data.boxes)
+    boxes_pad, valid = pad_boxes(data.boxes, max(-(-peak_boxes // 8) * 8, 8))
+    stats = block.raw_stats + (0.0, 1.0)
+    net = make_completion_net(mc, dev)
+
+    def resident():
+        return infer_frame_scores_resident(cfg, block.state_dict, stats, frames_np,
+                                           windows, boxes_pad, valid, net=net,
+                                           device=dev)
+
+    resident()  # warm
+    res_scores, res_s = timed(resident)
+    infer_launches = dict(kernels.launch_counts)
+    diff = np.abs(res_scores.astype(np.float64) - frame_scores)
+    rel = float(diff.max() / np.abs(frame_scores).max())
+    print(f"train-test: resident scoring {n_frames} frames in {res_s:.3f} s "
+          f"({n_frames / res_s:.1f} frames/s, frame upload and cube extraction "
+          f"included); against score_cubes -> frame_level_scores max |diff| "
+          f"{diff.max():.3e}, / max |score| {rel:.3e} (bound rtol=atol={RESIDENT_TOL})",
+          flush=True)
+    check(np.allclose(res_scores, frame_scores, rtol=RESIDENT_TOL, atol=RESIDENT_TOL),
+          f"resident vs offline frame scores, max |diff| {diff.max()}")
+
+    # the saved .npz loads back bit for bit and scores the same (up to the
+    # order cuDNN sums in from one call to the next: the resident bound)
+    loaded = load_vad_model(path).blocks[(0, 0, 0)]
+    check(all(torch.equal(loaded.state_dict[k], v.cpu())
+              for k, v in block.state_dict.items())
+          and np.array_equal(loaded.raw_scores, block.raw_scores),
+          "the reloaded model differs from the trained one")
+    again = pipeline.score_cubes(VadModel(cfg=cfg, blocks={(0, 0, 0): loaded}),
+                                 test_cubes, device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**train_launches, **dict(kernels.launch_counts), **infer_launches}
+    print(f"train-test: reloaded {Path(path).name}: weights bit for bit, cube scores "
+          f"max |diff| {np.abs(again - cube_scores).max():.3e} against the trained "
+          f"model's; peak device memory {peak / 2**20:.1f} MiB; K1/K2 launches over "
+          f"the phase {launches}")
+    check(np.allclose(again, cube_scores, rtol=RESIDENT_TOL, atol=RESIDENT_TOL),
+          "the reloaded model scores differently")
+    check(not launches, f"K1/K2 launched on the main path: {launches}")
+
+    # card vs CPU: the first step's loss from the same init_state, and the
+    # trained block's scores on a cube subset
+    train_cubes = runner._extract_cached(
+        cfg, str(TT_BASE), "train", runner.load_split(cfg, str(TT_BASE), "train"),
+        cfg.fore.train_block_mode, dev)
+    card_t = BlockTrainer(mc, cfg.fore.patch_size, device=dev)
+    cpu_t = BlockTrainer(mc, cfg.fore.patch_size, device="cpu")
+    idx, w = card_t._epoch_schedule(train_cubes.size, np.random.default_rng(SEED))
+    x = train_cubes.raw[idx[0]]
+    losses = []
+    for t in (card_t, cpu_t):
+        t.start_fit(t.init_state(SEED))
+        with torch.no_grad():
+            losses.append(float(t.loss(t.as_float_input(t.upload(x)),
+                                       torch.as_tensor(w[0], device=t.device))))
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"train-test: first step's loss card={losses[0]:.8f} cpu={losses[1]:.8f} "
+          f"rel diff={rel:.3e} (bound {LOSS_REL_TOL})")
+    check(rel <= LOSS_REL_TOL, f"card vs CPU first loss {losses}")
+    sub = test_cubes.raw[:TT_SUBSET]
+    card_sc = card_t.score_block(block, sub)[0]
+    cpu_sc = cpu_t.score_block(block, sub)[0]
+    rel = float(np.abs(card_sc - cpu_sc).max() / np.abs(cpu_sc).max())
+    print(f"train-test: trained block's scores on {sub.shape[0]} cubes card vs CPU "
+          f"max |diff| / max |score| = {rel:.3e} (bound {LOSS_REL_TOL})")
+    check(rel <= LOSS_REL_TOL, f"card vs CPU block scores {rel}")
+    del cpu_t
+
+    # steady steps at batch 128 (synchronised), then the profiles
+    buf = card_t.upload(train_cubes.raw)
+    card_t.start_fit(card_t.init_state(SEED))
+    step_ms = []
+    for s in range(TT_STEADY):
+        xb = card_t.as_float_input(buf.index_select(0, torch.as_tensor(idx[s], device=dev)))
+        wb = torch.as_tensor(w[s], device=dev)
+        _, dt = timed(lambda: card_t.train_step(xb, wb))
+        step_ms.append(dt * 1e3)
+    med = float(np.median(step_ms[1:]))
+    print(f"train-test: ms per training step (batch {mc.batch_size}, synchronised, "
+          f"steps 2-{TT_STEADY}) {step_stats(step_ms[1:])}; {mc.batch_size * 1e3 / med:.1f} "
+          f"cubes/s at the median; run_train's {steps} steps averaged "
+          f"{(wall - extract_s[0]) * 1e3 / steps:.3f} ms with scoring and saving",
+          flush=True)
+    xb = card_t.as_float_input(buf.index_select(0, torch.as_tensor(idx[0], device=dev)))
+    wb = torch.as_tensor(w[0], device=dev)
+    profile_calls("train-test: 5 training steps",
+                  lambda: [card_t.train_step(xb, wb) for _ in range(5)])
+    profile_calls("train-test: one resident scoring call", resident)
+    shutil.rmtree(TT_BASE, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -917,7 +1203,11 @@ def main() -> int:
 
     # -- calc-flow phase -----------------------------------------------------
     calc = calc_flow_phase()
-    phase_done("calc-flow", t_phase)
+    t_phase = phase_done("calc-flow", t_phase)
+
+    # -- train-test phase: the raw-only main path ----------------------------
+    train_test_phase()
+    phase_done("train-test", t_phase)
 
     rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"],
                                calc["fwd_err"]))

@@ -44,6 +44,8 @@ def _port_modules():
 def test_every_module_imports_with_jax_blocked():
     mods = ["vec_vad_torch"] + _port_modules()
     assert "vec_vad_torch.serve.live_flow" in mods
+    for m in ("train.trainer", "infer", "eval.metrics", "fore.detector", "runner"):
+        assert f"vec_vad_torch.{m}" in mods
     code = (
         "import sys\n"
         + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
@@ -180,6 +182,35 @@ def test_host_copies_match_jax_package():
     np.testing.assert_array_equal(a.test_frames, b.test_frames)
     for x, y in zip(a.test_boxes, b.test_boxes):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("module,names", [
+    ("score.scoring", ["BIG_NUMBER", "fuse_scores", "degenerate_boxes",
+                       "frame_scores_from_cubes", "normalize_scores_per_video",
+                       "splat_score_masks"]),
+    ("eval.metrics", ["_binary_curve", "roc_curve", "precision_recall_curve", "auc",
+                      "roc_auc_score", "EvalResult", "evaluate_scores",
+                      "save_roc_pr_curve_data"]),
+    ("ops.stc", ["pad_boxes"]),
+    ("fore.detector", ["PrecomputedDetector"]),
+    ("runtime.artifacts", ["_flatten", "_unflatten", "save_pytree_npz",
+                           "load_pytree_npz", "fingerprint", "ArtifactCache"]),
+])
+def test_copied_host_functions_equal_jax_package(module, names):
+    """The host (NumPy) functions the main path copies are the JAX
+    package's code, name for name."""
+    import importlib
+    import inspect
+
+    t_mod = importlib.import_module(f"vec_vad_torch.{module}")
+    j_mod = importlib.import_module(f"vec_vad_tpu.{module}")
+    for name in names:
+        t_obj, j_obj = getattr(t_mod, name), getattr(j_mod, name)
+        if not callable(t_obj):
+            assert t_obj == j_obj, name
+            continue
+        assert ast.dump(ast.parse(inspect.getsource(t_obj))) == \
+            ast.dump(ast.parse(inspect.getsource(j_obj))), name
 
 
 @pytest.mark.parametrize("name", ["data/video_index.py", "data/readers.py"])

@@ -1,10 +1,12 @@
-"""The port's f32 entry points run their flow nets with TF32 off.
+"""The port's f32 entry points run their nets with TF32 off.
 
 cuDNN's TF32 (torch's default for convolutions) keeps about three decimal
 digits, which moves FlowNet2's flow past the 1e-3 bound that holds the card
-to the f32 computation. So `run_calc_flow`, `FlowStreamingScorer.push` and
-`FlowTrainer.step` turn both TF32 flags off for the duration of the call
-(`vec_vad_torch.device.full_f32`) and give the caller's values back after.
+to the f32 computation. So `run_calc_flow`, `FlowStreamingScorer.push`,
+`FlowTrainer.step`, and on the main path `run_train`, `run_test` and
+`infer_frame_scores_resident`, turn both TF32 flags off for the duration of
+the call (`vec_vad_torch.device.full_f32`) and give the caller's values
+back after.
 A forward hook on the flow net reads the flags where the net runs; the
 flags are plain settings, so this holds on the CPU as on the card. The bf16
 routes leave them as they are."""
@@ -46,6 +48,14 @@ class ProbeFlow(torch.nn.Module):
         if x.dim() == 5:
             x = torch.cat([x[:, 0], x[:, 1]], dim=-1)
         return self.conv((x / 255.0).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture
@@ -114,3 +124,83 @@ def test_trainer_step_turns_tf32_off(tf32_on):
     assert net.seen == [(False, False)]
     assert _flags() == (True, True)
     assert np.isfinite(float(m["loss"]))
+
+
+def _main_path_workspace(base, lengths=(6, 6)):
+    """Two seeded 6-frame videos a split as uint8 .npy frames, their .bmp
+    label masks and bbox fixtures, in the UCSD layout under DATASET."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(5)
+    root = os.path.join(base, "raw_datasets", DATASET)
+    for split in ("Train", "Test"):
+        boxes = []
+        for v, n in enumerate(lengths):
+            d = os.path.join(root, split, f"{split}{v + 1:03d}")
+            os.makedirs(d)
+            if split == "Test":
+                os.makedirs(d + "_gt")
+            for t in range(n):
+                np.save(os.path.join(d, f"{t:03d}.npy"),
+                        rng.integers(0, 256, HW + (3,), dtype=np.uint8))
+                boxes.append(np.array([[2.0 + t, 3.0, 18.0 + t, 20.0],
+                                       [10.0, 1.0, 30.0, 15.0 + v]], np.float32))
+                if split == "Test":
+                    cv2.imwrite(os.path.join(d + "_gt", f"{t:03d}.bmp"),
+                                np.full(HW, 255 * (t % 2), np.uint8))
+        fixture = np.empty(len(boxes), dtype=object)
+        fixture[:] = boxes
+        np.save(os.path.join(root, f"bboxes_{split.lower()}_obj_det_with_motion.npy"),
+                fixture, allow_pickle=True)
+
+
+def test_main_path_entry_points_turn_tf32_off(tmp_path, monkeypatch, tf32_on):
+    """run_train, run_test and infer_frame_scores_resident: the STC matmuls
+    and every completion-net forward see both TF32 flags False; the
+    caller's flags come back after each."""
+    from vec_vad_torch import pipeline as t_pipe
+    from vec_vad_torch.infer import infer_frame_scores_resident
+    from vec_vad_torch.ops.stc import pad_boxes
+
+    spec = dataclasses.replace(t_cfg.DATASETS["UCSDped2"], name=DATASET,
+                               frame_h=HW[0], frame_w=HW[1], file_ext=".npy")
+    monkeypatch.setitem(t_cfg.DATASETS, DATASET, spec)
+    _main_path_workspace(str(tmp_path))
+    cfg = PipelineConfig(
+        dataset_name=DATASET, fore=ForegroundConfig(patch_size=16),
+        model=CompletionConfig(nf=4, epochs=1, batch_size=4, context_of_num=0,
+                               use_flow=False))
+    seen = []
+    stc = t_pipe.extract_stc
+    monkeypatch.setattr(t_pipe, "extract_stc",
+                        lambda *a, **k: seen.append(("stc",) + _flags()) or stc(*a, **k))
+    make = t_pipe.make_trainer
+
+    def hooked_trainer(cfg, device):
+        trainer = make(cfg, device)
+        trainer.net.register_forward_hook(
+            lambda mod, inp, out: seen.append(("net",) + _flags()))
+        return trainer
+
+    monkeypatch.setattr(t_runner, "make_trainer", hooked_trainer)
+    model, _ = t_runner.run_train(cfg, str(tmp_path), device="cpu")
+    assert _flags() == (True, True)
+    res = t_runner.run_test(cfg, str(tmp_path), device="cpu")
+    assert _flags() == (True, True) and np.isfinite(res["frame_scores"]).all()
+    kinds = {k for k, *_ in seen}
+    assert kinds == {"stc", "net"} and {tuple(f) for _, *f in seen} == {(False, False)}
+
+    seen.clear()
+    net = make_completion_net(cfg.model, device="cpu")
+    net.register_forward_hook(lambda mod, inp, out: seen.append(("net",) + _flags()))
+    frames = np.stack([np.load(os.path.join(tmp_path, "raw_datasets", DATASET, "Test",
+                                            "Test001", f"{t:03d}.npy")) for t in range(6)])
+    boxes = [np.array([[2.0, 3.0, 18.0, 20.0]], np.float32)] * 6
+    boxes_pad, valid = pad_boxes(boxes, 8)
+    windows = np.maximum(np.arange(6)[:, None] + np.arange(-4, 1)[None], 0)
+    blk = model.blocks[(0, 0, 0)]
+    out = infer_frame_scores_resident(cfg, blk.state_dict, blk.raw_stats + (0.0, 1.0),
+                                      frames, windows, boxes_pad, valid, net=net,
+                                      device="cpu")
+    assert np.isfinite(out).all() and _flags() == (True, True)
+    assert {k for k, *_ in seen} == {"stc", "net"}
+    assert {tuple(f) for _, *f in seen} == {(False, False)}

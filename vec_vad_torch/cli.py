@@ -1,13 +1,17 @@
-"""The port's command line (vec_vad_tpu/cli.py): `calc-flow`,
-`flow-train` and `flow-infer`, with vec_vad_tpu's flags and messages plus
-`--device` (the card by default; `--device cpu` runs the plain PyTorch
-path).
+"""The port's command line (vec_vad_tpu/cli.py): `train`, `test`,
+`calc-flow`, `flow-train` and `flow-infer`, with vec_vad_tpu's flags and
+messages plus `--device` (the card by default; `--device cpu` runs the
+plain PyTorch path).
 
+    python -m vec_vad_torch train --config config.cfg --base .
+    python -m vec_vad_torch test --config config.cfg --base .
     python -m vec_vad_torch calc-flow --config config.cfg --base .
     python -m vec_vad_torch flow-train --data-root TREE --workdir WD \\
         --net FlowNetC --loss multiscale --norm L1
     python -m vec_vad_torch flow-infer --data-root TREE --workdir WD
 
+train and test keep `--resident` and test `--pixel-criterion`, which
+refuse to run (not ported, ROADMAP.md Queue 1 items 2.9 and 2.10).
 calc-flow has no `--no-mesh`: the JAX package's data-parallel mesh is not
 ported. The other subcommands of vec_vad_tpu are not ported yet
 (ROADMAP.md).
@@ -53,6 +57,38 @@ def _add_common(p):
     )
     p.add_argument("--base", default=".", help="base dir holding raw_datasets/")
     p.add_argument("--dataset", default=None, help="override dataset_name")
+
+
+def cmd_train(args) -> int:
+    from vec_vad_torch.runner import run_train
+
+    cfg = _load_cfg(args)
+    model, path = run_train(
+        cfg, args.base, seed=args.seed, log_every=args.log_every,
+        resident=args.resident, device=args.device,
+    )
+    print(f"trained {len(model.blocks)} block model(s) -> {path}")
+    return 0
+
+
+def cmd_test(args) -> int:
+    from vec_vad_torch.runner import run_test
+
+    cfg = _load_cfg(args)
+    res = run_test(
+        cfg, args.base, save_masks=args.save_masks,
+        per_video_norm=args.per_video_norm,
+        pixel_criterion=args.pixel_criterion,
+        resident=args.resident, device=args.device,
+    )
+    if "auroc_per_scene" in res:
+        for si, auc in sorted(res["auroc_per_scene"].items()):
+            print(f"scene {si} frame-level AUROC: {auc:.4f}")
+        print(f"average frame-level AUROC: {res['auroc']:.4f}")
+    else:
+        print(f"frame-level AUROC: {res['auroc']:.4f}")
+    print(f"curves -> {res['results_path']}")
+    return 0
 
 
 def cmd_calc_flow(args) -> int:
@@ -262,6 +298,33 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="vec_vad_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     nets = list(_FLOW_COMPONENTS + _FLOW_COMPOSITES)
+
+    p = sub.add_parser("train", help="train the completion-model grid")
+    _add_common(p)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log-every", type=int, default=5)
+    p.add_argument(
+        "--resident", action="store_true",
+        help="device-resident extraction (not ported: refuses to run)",
+    )
+    _add_device(p)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("test", help="score the test split + AUROC")
+    _add_common(p)
+    p.add_argument("--save-masks", action="store_true")
+    p.add_argument("--per-video-norm", action="store_true")
+    p.add_argument(
+        "--pixel-criterion", action="store_true",
+        help="also evaluate the pixel-level coverage criterion "
+        "(not ported: refuses to run)",
+    )
+    p.add_argument(
+        "--resident", action="store_true",
+        help="device-resident test extraction (not ported: refuses to run)",
+    )
+    _add_device(p)
+    p.set_defaults(fn=cmd_test)
 
     p = sub.add_parser("calc-flow", help="precompute FlowNet2 optical flow")
     _add_common(p)

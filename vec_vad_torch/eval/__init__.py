@@ -1,0 +1,1 @@
+"""See the package docstring in vec_vad_torch/__init__.py."""

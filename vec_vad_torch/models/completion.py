@@ -15,7 +15,8 @@ Semantics preserved exactly:
 
 Layout at the boundary: NHWC. Cube inputs are (K, P, P, T*3) raw /
 (K, P, P, T_of*2) flow, channel-stacked T-major; outputs (E, K, P, P, C).
-Eval mode only in this slice.
+`forward(x, x_of)` is the eval forward serving uses; `forward(x, x_of,
+train=True, batch_weight=w)` the training forward (train/trainer.py).
 """
 
 from __future__ import annotations
@@ -115,8 +116,12 @@ class SelfCompletionNet(nn.Module):
             if 0 <= k - self.raw_of_offset < self.tot_of_num
         ]
 
-    def forward(self, x: torch.Tensor,
-                x_of: Optional[torch.Tensor]) -> CompletionOutput:
+    def forward(self, x: torch.Tensor, x_of: Optional[torch.Tensor],
+                train: bool = False,
+                batch_weight: Optional[torch.Tensor] = None) -> CompletionOutput:
+        """train=True uses (and updates) the BatchNorm batch statistics;
+        batch_weight, an optional (K,) 0/1 pad mask, restricts them to the
+        weighted rows (vec_vad_tpu/models/completion.py:106-166)."""
         ch = self.raw_channels
         positions = self.raw_positions
         erased = torch.stack(
@@ -126,7 +131,8 @@ class SelfCompletionNet(nn.Module):
             [x[..., k * ch : (k + 1) * ch] for k in positions], dim=0
         )
         E = len(positions)
-        raw_out = _members_out(self.raw_unets(_members_in(erased)), E)
+        raw_out = _members_out(
+            self.raw_unets(_members_in(erased), train, batch_weight), E)
 
         of_out = of_tgt = None
         if self.of_unets is not None:
@@ -135,8 +141,9 @@ class SelfCompletionNet(nn.Module):
             fpos = self.flow_positions
             och = self.of_channels
             flow_in = erased[[positions.index(k) for k, _ in fpos]]
-            of_out = _members_out(self.of_unets(_members_in(flow_in)),
-                                  len(fpos))
+            of_out = _members_out(
+                self.of_unets(_members_in(flow_in), train, batch_weight),
+                len(fpos))
             assert x_of is not None, "use_flow=True requires x_of"
             of_tgt = torch.stack(
                 [x_of[..., i * och : (i + 1) * och] for _, i in fpos], dim=0

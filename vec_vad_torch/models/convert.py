@@ -1,8 +1,8 @@
-"""Carry the JAX package's weights into the port.
+"""Carry weights between the JAX package's layout and the port's.
 
-Both converters take the JAX package's parameters as numpy arrays (flax
-trees, as `vec_vad_tpu.runtime.artifacts` saves them) and return a torch
-state dict for the port's module:
+The *_from_jax converters take the JAX package's parameters as numpy
+arrays (flax trees, as `vec_vad_tpu.runtime.artifacts` saves them) and
+return a torch state dict for the port's module:
 
   * completion_from_jax — the flax `raw_unets`/`of_unets` trees (leading
     member axis E) -> SelfCompletionNet. Conv kernels (E, kh, kw, I, O)
@@ -10,6 +10,8 @@ state dict for the port's module:
     -> grouped (E*I, O, kh, kw) WITHOUT a flip, because the JAX layer flips
     inside its forward (vec_vad_tpu/models/layers.py:90-97) where torch's
     conv_transpose2d does the same implicitly.
+  * completion_to_jax — the inverse of completion_from_jax, for saving a
+    model the port trained in the JAX package's .npz layout.
   * flownet2_from_jax — the FlowNet2 tree -> FlowNet2, the inverse of
     vec_vad_tpu/models/flownet/convert.py:31-36 (HWIO -> OIHW for convs,
     (kh, kw, I, O) -> (I, O, kh, kw) for transposed convs).
@@ -75,6 +77,61 @@ def completion_from_jax(params: Dict[str, Any],
         if ens in params:
             sd.update(_unet_from_jax(params[ens], batch_stats[ens], ens))
     return sd
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32, copy=True)
+
+
+def _unet_to_jax(sd: Dict[str, torch.Tensor], prefix: str):
+    """The inverse of _unet_from_jax: one ensemble's (params, batch_stats)
+    trees, every leaf with its leading member axis E."""
+    w1 = sd[f"{prefix}.down.0.conv1.weight"]  # (E*f, f, 3, 3)
+    E = w1.shape[0] // w1.shape[1]
+
+    def conv(w):  # (E*O, I, kh, kw) -> (E, kh, kw, I, O)
+        eo, i, kh, kw = w.shape
+        return _np(w).reshape(E, eo // E, i, kh, kw).transpose(0, 3, 4, 2, 1)
+
+    def conv_t(w):  # (E*I, O, kh, kw) -> (E, kh, kw, I, O)
+        ei, o, kh, kw = w.shape
+        return _np(w).reshape(E, ei // E, o, kh, kw).transpose(0, 3, 4, 1, 2)
+
+    def per_member(v):  # (E*F,) -> (E, F)
+        return _np(v).reshape(E, -1)
+
+    params, stats = {}, {}
+    names = [f"down.{i}" for i in range(4)] + [f"up.{i}" for i in range(3)]
+    for i, name in enumerate(names):
+        m = f"{prefix}.{name}"
+        dp, ds = {}, {}
+        for j in (0, 1):
+            dp[f"Conv_{j}"] = {"kernel": conv(sd[f"{m}.conv{j}.weight"]),
+                               "bias": per_member(sd[f"{m}.conv{j}.bias"])}
+            dp[f"BatchNorm_{j}"] = {"scale": per_member(sd[f"{m}.bn{j}.weight"]),
+                                    "bias": per_member(sd[f"{m}.bn{j}.bias"])}
+            ds[f"BatchNorm_{j}"] = {"mean": per_member(sd[f"{m}.bn{j}.running_mean"]),
+                                    "var": per_member(sd[f"{m}.bn{j}.running_var"])}
+        params[f"DoubleConv_{i}"], stats[f"DoubleConv_{i}"] = dp, ds
+    for i in range(3):
+        params[f"ConvTranspose2x_{i}"] = {
+            "kernel": conv_t(sd[f"{prefix}.up_t.{i}.weight"]),
+            "bias": per_member(sd[f"{prefix}.up_t.{i}.bias"]),
+        }
+    params["out_kernel"] = conv(sd[f"{prefix}.out.weight"])
+    params["out_bias"] = per_member(sd[f"{prefix}.out.bias"])
+    return params, stats
+
+
+def completion_to_jax(state_dict: Dict[str, torch.Tensor]):
+    """(params, batch_stats) numpy trees in the JAX package's layout for a
+    SelfCompletionNet state dict: the inverse of completion_from_jax, bit
+    for bit (reshapes and transposes only)."""
+    params, stats = {}, {}
+    for ens in ("raw_unets", "of_unets"):
+        if f"{ens}.out.weight" in state_dict:
+            params[ens], stats[ens] = _unet_to_jax(state_dict, ens)
+    return params, stats
 
 
 def flownet2_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -10,8 +10,11 @@ replicates:
 
   * Conv2d 3x3 'same' / 1x1;
   * ConvTranspose2d(k=3, s=2, p=1, output_padding=1), weight (I, O, kh, kw);
-  * BatchNorm2d with eps 1e-5, in eval mode (running statistics) — the
-    serving slice does not train;
+  * BatchNorm2d with eps 1e-5: eval mode uses the running statistics;
+    train mode uses the batch statistics over (B, H, W) per member-channel
+    and updates the running statistics with momentum 0.1 and the
+    UNBIASED batch variance n/(n-1), optionally over the rows a (B,) 0/1
+    `batch_weight` marks (masked_bn, vec_vad_tpu/models/layers.py:101-148);
   * MaxPool2d(2).
 
 Parameters are created empty on `device`; weights come from
@@ -64,21 +67,44 @@ class ConvTranspose2x(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d over E*F channels (running statistics)."""
+    """BatchNorm2d over E*F channels with torch's running-stat semantics.
 
-    def __init__(self, members, features, epsilon=1e-5, device="cuda"):
+    batch_weight (optional, (B,) 0/1, train mode only): the batch
+    statistics cover only the weighted rows, so a wrap-padded batch trains
+    exactly like the bare partial batch (the reference trains its final
+    batch unpadded, train.py:383-402). Rows with weight 0 are still
+    normalised, by the weighted rows' statistics."""
+
+    def __init__(self, members, features, momentum=0.1, epsilon=1e-5,
+                 device="cuda"):
         super().__init__()
         dev = resolve_device(device)
         n = members * features
-        self.epsilon = epsilon
+        self.momentum, self.epsilon = momentum, epsilon
         self.weight = nn.Parameter(torch.ones(n, device=dev))
         self.bias = nn.Parameter(torch.zeros(n, device=dev))
         self.register_buffer("running_mean", torch.zeros(n, device=dev))
         self.register_buffer("running_var", torch.ones(n, device=dev))
 
-    def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.epsilon)
+    def forward(self, x, train: bool = False, batch_weight=None):
+        if not train or batch_weight is None:
+            # torch's own batch norm: batch statistics in train mode, the
+            # running ones updated with the unbiased variance
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, train,
+                                self.momentum, self.epsilon)
+        w = batch_weight.to(x.dtype).reshape(-1, 1, 1, 1)
+        n = torch.clamp(batch_weight.sum() * (x.shape[2] * x.shape[3]), min=1.0)
+        mean = (x * w).sum(dim=(0, 2, 3)) / n
+        var = (w * (x - mean[:, None, None]).square()).sum(dim=(0, 2, 3)) / n
+        with torch.no_grad():
+            m = self.momentum
+            unbias = n / torch.clamp(n - 1.0, min=1.0)
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * unbias)
+        inv = torch.rsqrt(var + self.epsilon)
+        return ((x - mean[:, None, None]) * (inv * self.weight)[:, None, None]
+                + self.bias[:, None, None])
 
 
 class DoubleConv(nn.Module):
@@ -91,9 +117,9 @@ class DoubleConv(nn.Module):
         self.conv1 = Conv(members, features, features, device=device)
         self.bn1 = BatchNorm(members, features, device=device)
 
-    def forward(self, x):
-        x = F.relu(self.bn0(self.conv0(x)))
-        return F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x, train: bool = False, batch_weight=None):
+        x = F.relu(self.bn0(self.conv0(x), train, batch_weight))
+        return F.relu(self.bn1(self.conv1(x), train, batch_weight))
 
 
 def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
@@ -117,7 +143,8 @@ class UNet(nn.Module):
     shape): inconv -> 3x(maxpool+double_conv) -> 3x(convT-up + skip
     concat + double_conv) -> 1x1 outconv. Channels f, 2f, 4f, 8f.
 
-    forward: (N, E*in_ch, P, P) -> (N, E*out_ch, P, P), member-major."""
+    forward: (N, E*in_ch, P, P) -> (N, E*out_ch, P, P), member-major;
+    `train` and `batch_weight` go to every BatchNorm."""
 
     def __init__(self, members, in_ch, features_root, out_channels,
                  device="cuda"):
@@ -142,12 +169,13 @@ class UNet(nn.Module):
         ])
         self.out = Conv(E, f, out_channels, kernel_size=1, device=d)
 
-    def forward(self, x):
-        x1 = self.down[0](x)
-        x2 = self.down[1](max_pool_2x(x1))
-        x3 = self.down[2](max_pool_2x(x2))
-        x4 = self.down[3](max_pool_2x(x3))
+    def forward(self, x, train: bool = False, batch_weight=None):
+        t, w = train, batch_weight
+        x1 = self.down[0](x, t, w)
+        x2 = self.down[1](max_pool_2x(x1), t, w)
+        x3 = self.down[2](max_pool_2x(x2), t, w)
+        x4 = self.down[3](max_pool_2x(x3), t, w)
         y = x4
         for skip, up_t, up in zip((x3, x2, x1), self.up_t, self.up):
-            y = up(_cat_members(self.members, skip, up_t(y)))
+            y = up(_cat_members(self.members, skip, up_t(y)), t, w)
         return self.out(y)

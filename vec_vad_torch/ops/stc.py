@@ -10,11 +10,13 @@ interpolation matrices built from the box coordinates:
     patch[k, t, p, q, c] = sum_{h, w} My[k, p, h] * window[t, h, w, c] * Mx[k, q, w]
 
 Sampling follows cv2.resize INTER_LINEAR's half-pixel-center convention
-with edge clamping. Products run in full f32 (no TF32).
+with edge clamping. Products run in full f32 (no TF32). `pad_boxes`
+(NumPy) pads a split's ragged per-frame box lists to a dense set.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -48,18 +50,19 @@ def extract_stc(
     quantize: bool = False,
 ) -> torch.Tensor:
     """Crop-resize a padded (K, 4) xyxy box set from every frame of a
-    (T, H, W, C) float or uint8 window.
+    (T, H, W, C) float or uint8 window; with leading batch dims, a
+    (..., T, H, W, C) window stack and a (..., K, 4) box stack.
 
-    Returns (K, T, P, P, C) float32 cubes; `quantize` rounds half-to-even
-    like the reference's uint8 cube storage. Rows for padded boxes hold
-    garbage; callers mask them with their validity vector."""
-    T, H, W, C = window.shape
+    Returns (..., K, T, P, P, C) float32 cubes; `quantize` rounds
+    half-to-even like the reference's uint8 cube storage. Rows for padded
+    boxes hold garbage; callers mask them with their validity vector."""
+    H, W = window.shape[-3:-1]
     e = torch.ceil(boxes.float()).to(torch.int32)
-    my = _interp_matrix(e[:, 1], e[:, 3], H, patch_size)  # (K, P, H)
-    mx = _interp_matrix(e[:, 0], e[:, 2], W, patch_size)  # (K, P, W)
+    my = _interp_matrix(e[..., 1], e[..., 3], H, patch_size)  # (..., K, P, H)
+    mx = _interp_matrix(e[..., 0], e[..., 2], W, patch_size)  # (..., K, P, W)
     win = window.float()
-    rows = torch.einsum("kph,thwc->ktpwc", my, win)
-    patch = torch.einsum("ktpwc,kqw->ktpqc", rows, mx)
+    rows = torch.einsum("...kph,...thwc->...ktpwc", my, win)
+    patch = torch.einsum("...ktpwc,...kqw->...ktpqc", rows, mx)
     if quantize:
         patch = torch.round(patch)
     return patch
@@ -88,3 +91,26 @@ def flow_magnitude(flow_cubes: torch.Tensor) -> torch.Tensor:
     return torch.mean(
         torch.sum(flow_cubes.float() ** 2, dim=(-3, -2, -1)), dim=-1
     )
+
+
+def pad_boxes(
+    boxes_list, max_boxes: int
+) -> "tuple[np.ndarray, np.ndarray]":
+    """Pad a ragged per-frame list of (K_i, 4) box arrays to a dense
+    (N, max_boxes, 4) array + (N, max_boxes) validity mask.
+
+    This is the static-shape bridge for the reference's object-array bbox
+    files (raw_datasets/*/bboxes_*.npy)."""
+    n = len(boxes_list)
+    out = np.zeros((n, max_boxes, 4), dtype=np.float32)
+    valid = np.zeros((n, max_boxes), dtype=bool)
+    for i, b in enumerate(boxes_list):
+        b = np.asarray(b, dtype=np.float32).reshape(-1, 4)
+        k = min(b.shape[0], max_boxes)
+        if b.shape[0] > max_boxes:
+            raise ValueError(
+                f"frame {i} has {b.shape[0]} boxes > max_boxes={max_boxes}"
+            )
+        out[i, :k] = b[:k]
+        valid[i, :k] = True
+    return out, valid

@@ -1,34 +1,282 @@
 """Disk-based pipeline orchestration (vec_vad_tpu/runner.py): the library
-equivalent of the reference's `python calc_optical_flow.py`.
+equivalents of the reference's `python train.py` / `python test.py` /
+`python calc_optical_flow.py` entry points (train_and_test.sh), with the
+boolean stage flags replaced by the content-hash artifact cache.
 
 Layout conventions match the reference:
   <base>/raw_datasets/<name>/...                 frames + GT
+  <base>/raw_datasets/<name>/bboxes_{split}_{mode}.npy   bbox fixtures
   <base>/optical_flow/<name>/...                 mirrored flow .npy tree
+  <base>/data/...                                cached artifacts
+  <base>/results/<name>/...                      scores + curves
 
-Only calc-flow is ported. Not yet ported from vec_vad_tpu.runner:
-`load_split`, `run_train`, `run_test`, `evaluate_frame_scores` and
-`run_precompute_boxes` (ROADMAP.md).
+Every entry point runs on `device` (the card unless the caller passes
+device="cpu"), its f32 convolutions with TF32 off (device.full_f32).
+Not ported (ROADMAP.md): computing boxes where no fixture exists and
+`run_precompute_boxes` (item 4.1), the resident extraction (item 2.9),
+the pixel criterion (item 2.10) and calc-flow's mesh (item 5).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vec_vad_torch.config import PipelineConfig
-from vec_vad_torch.data.readers import LazyFrameStack
+from vec_vad_torch.data.readers import LazyFlowStack, LazyFrameStack, load_frame_labels
 from vec_vad_torch.data.video_index import VideoIndex
 from vec_vad_torch.device import full_f32, resolve_device
+from vec_vad_torch.eval.metrics import save_roc_pr_curve_data
+from vec_vad_torch.fore.detector import PrecomputedDetector
 from vec_vad_torch.models.flownet import load_flownet_checkpoint, make_flownet2
+from vec_vad_torch.pipeline import (
+    CubeSet,
+    VadModel,
+    extract_cube_set,
+    frame_level_scores,
+    make_trainer,
+    pixel_score_masks,
+    score_cubes,
+    train_model,
+)
+from vec_vad_torch.runtime.artifacts import (
+    ArtifactCache,
+    fingerprint,
+    load_vad_model,
+    save_vad_model,
+)
 
 _FLOW_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+@dataclass
+class SplitData:
+    index: VideoIndex
+    frames: LazyFrameStack
+    flow: Optional[LazyFlowStack]
+    boxes: List[np.ndarray]
+
+
 def _dataset_root(cfg: PipelineConfig, base: str) -> str:
     return os.path.join(base, cfg.raw_dataset_dir, cfg.dataset_name)
+
+
+def _refuse(flag: bool, what: str, item: str) -> None:
+    if flag:
+        raise NotImplementedError(f"{what} is not ported: ROADMAP.md {item}")
+
+
+def load_split(cfg: PipelineConfig, base: str, split: str) -> SplitData:
+    """Assemble one split's inputs: index, lazy frames, optional flow tree,
+    and the foreground boxes of the split's bbox fixture file."""
+    root = _dataset_root(cfg, base)
+    spec = cfg.dataset
+    index = VideoIndex.from_layout(cfg.dataset_name, root, split, spec.file_ext)
+    if index.total_frames == 0:
+        raise FileNotFoundError(f"no frames under {root} for split {split!r}")
+    frames = LazyFrameStack(index)
+
+    of_root = os.path.join(base, cfg.optical_flow_dir, cfg.dataset_name)
+    flow = None
+    if os.path.isdir(of_root) and cfg.modality in ("raw2flow", "optical_flow"):
+        try:
+            flow = LazyFlowStack(index, of_root, root)
+        except FileNotFoundError:
+            flow = None
+
+    fixture = os.path.join(
+        root, f"bboxes_{split}_{cfg.fore.extraction_mode}.npy"
+    )
+    if not os.path.exists(fixture):
+        raise FileNotFoundError(
+            f"no bbox fixture {fixture}: computing foreground boxes from the "
+            "frames is not ported (ROADMAP.md Queue 1 item 4.1)"
+        )
+    det = PrecomputedDetector(fixture)
+    boxes = [det.boxes_for_frame(i) for i in range(index.total_frames)]
+    return SplitData(index=index, frames=frames, flow=flow, boxes=boxes)
+
+
+def _extract_cached(
+    cfg: PipelineConfig, base: str, split: str, data: SplitData,
+    block_mode: int, device,
+) -> CubeSet:
+    cache = ArtifactCache(os.path.join(base, cfg.data_root_dir, cfg.modality))
+    # Box CONTENT must be part of the key: re-detected boxes with the same
+    # per-frame counts would otherwise serve a stale cube cache.
+    boxes_blob = (
+        np.concatenate([np.asarray(b, np.float64).reshape(-1) for b in data.boxes])
+        if data.boxes else np.zeros(0)
+    )
+    # Frame PROVENANCE too: regenerated frames with unchanged boxes would
+    # otherwise serve cubes extracted from the old pixels. A stat()-level
+    # signature (path, size, mtime) of the on-disk tree.
+    frames_sig = [
+        (p, os.path.getsize(p), os.path.getmtime(p))
+        for p in data.index.frame_paths
+    ]
+    fp = fingerprint(
+        cfg.fore, cfg.model.context_frame_num, cfg.model.context_of_num,
+        cfg.model.border_mode, split, block_mode, data.index.total_frames,
+        boxes_blob, data.flow is not None, frames_sig,
+    )
+
+    def compute():
+        return extract_cube_set(
+            cfg, cfg.dataset, data.index, data.frames, data.boxes,
+            flow_frames=data.flow, block_mode=block_mode, device=device,
+        )
+
+    def save(path, cubes: CubeSet):
+        np.savez_compressed(
+            path,
+            raw=cubes.raw,
+            flow=(cubes.flow if cubes.flow is not None else np.zeros(0)),
+            has_flow=np.array(cubes.flow is not None),
+            frame_ids=cubes.frame_ids,
+            boxes=cubes.boxes,
+            cells=cubes.cells,
+            scenes=cubes.scenes,
+        )
+
+    def load(path):
+        with np.load(path) as z:
+            return CubeSet(
+                raw=z["raw"],
+                flow=z["flow"] if bool(z["has_flow"]) else None,
+                frame_ids=z["frame_ids"],
+                boxes=z["boxes"],
+                cells=z["cells"],
+                scenes=z["scenes"],
+            )
+
+    return cache.get_or_compute(f"foreground_{split}", fp, compute, save, load)
+
+
+def model_path(cfg: PipelineConfig, base: str) -> str:
+    return os.path.join(
+        base, cfg.data_root_dir, cfg.modality,
+        f"{cfg.dataset_name}_model_{cfg.fore.extraction_mode}_{cfg.method}.npz",
+    )
+
+
+def run_train(
+    cfg: PipelineConfig,
+    base: str,
+    seed: int = 0,
+    log_every: int = 0,
+    resident: bool = False,
+    device="cuda",
+) -> Tuple[VadModel, str]:
+    """Full training pipeline on `device`; returns the model and its
+    artifact path (the JAX package's .npz layout)."""
+    _refuse(resident, "resident extraction (--resident)", "Queue 1 item 2.9")
+    dev = resolve_device(device)
+    with full_f32():
+        data = load_split(cfg, base, "train")
+        cubes = _extract_cached(
+            cfg, base, "train", data, cfg.fore.train_block_mode, dev
+        )
+        trainer = make_trainer(cfg, dev)
+        model = train_model(cfg, cubes, trainer=trainer, seed=seed,
+                            log_every=log_every)
+    path = model_path(cfg, base)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_vad_model(path, model)
+    return model, path
+
+
+def run_test(
+    cfg: PipelineConfig,
+    base: str,
+    model: Optional[VadModel] = None,
+    save_masks: bool = False,
+    per_video_norm: bool = False,
+    pixel_criterion: bool = False,
+    resident: bool = False,
+    device="cuda",
+) -> dict:
+    """Scoring + evaluation on `device`; returns a result dict with AUROC
+    etc. per_video_norm: min-max normalize frame scores within each video
+    before AUROC (optional evaluation variant; the reference normalizes
+    only by training statistics)."""
+    _refuse(pixel_criterion, "the pixel-level criterion (--pixel-criterion)",
+            "Queue 1 item 2.10")
+    _refuse(resident, "resident extraction (--resident)", "Queue 1 item 2.9")
+    dev = resolve_device(device)
+    if model is None:
+        model = load_vad_model(model_path(cfg, base))
+    with full_f32():
+        data = load_split(cfg, base, "test")
+        cubes = _extract_cached(
+            cfg, base, "test", data, cfg.fore.test_block_mode, dev
+        )
+        trainer = make_trainer(cfg, dev)
+        cube_scores = score_cubes(model, cubes, trainer=trainer)
+    n = data.index.total_frames
+    frame_scores = frame_level_scores(cube_scores, cubes, n)
+
+    results_dir = os.path.join(base, cfg.results_dir, cfg.dataset_name)
+    os.makedirs(results_dir, exist_ok=True)
+    if save_masks:
+        # actual stream geometry, not the config table's (synthetic
+        # workspaces run reduced frame sizes under a real dataset name)
+        frame_hw = tuple(data.frames.shape[1:3])
+        masks = pixel_score_masks(cube_scores, cubes, n, frame_hw)
+        np.save(os.path.join(results_dir, "score_masks.npy"), masks)
+
+    if per_video_norm:
+        from vec_vad_torch.score.scoring import normalize_scores_per_video
+
+        frame_scores = normalize_scores_per_video(
+            frame_scores, data.index.frame_video_idx
+        )
+
+    root = _dataset_root(cfg, base)
+    labels = load_frame_labels(cfg.dataset_name, root, data.index)
+    out = evaluate_frame_scores(
+        cfg, results_dir, frame_scores, labels, data.index.scene_idx
+    )
+    out["frame_scores"] = frame_scores
+    out["labels"] = labels
+    return out
+
+
+def evaluate_frame_scores(
+    cfg: PipelineConfig,
+    results_dir: str,
+    frame_scores: np.ndarray,
+    labels: np.ndarray,
+    scene_idx: Optional[np.ndarray] = None,
+) -> dict:
+    """Frame-criterion evaluation with the reference's scene semantics
+    (test.py:370-399): single-scene datasets get one ROC/PR artifact;
+    a multi-scene partition gets one artifact per scene plus the
+    unweighted mean AUROC over scenes as the headline number."""
+    stem = f"{cfg.modality}_{cfg.fore.extraction_mode}_{cfg.method}_frame_results"
+    scene_ids = (
+        sorted(set(int(s) for s in scene_idx)) if scene_idx is not None else [1]
+    )
+    if len(scene_ids) > 1:
+        per_scene = {}
+        for si in scene_ids:
+            mask = scene_idx == si
+            path_si = os.path.join(results_dir, f"{stem}_scene_{si}.npz")
+            per_scene[si] = save_roc_pr_curve_data(
+                frame_scores[mask], labels[mask], path_si
+            )
+        return {
+            "auroc": float(np.mean(list(per_scene.values()))),
+            "auroc_per_scene": per_scene,
+            "results_path": results_dir,
+        }
+    results_path = os.path.join(results_dir, f"{stem}.npz")
+    auroc = save_roc_pr_curve_data(frame_scores, labels, results_path)
+    return {"auroc": auroc, "results_path": results_path}
 
 
 def run_calc_flow(

@@ -1,11 +1,44 @@
-"""Score constants and host helpers (a copy of what serving needs from
-vec_vad_tpu/score/scoring.py; reference semantics test.py:269-358)."""
+"""Test-time score normalization, fusion and aggregation: a copy of the
+host (NumPy) part of vec_vad_tpu/score/scoring.py, kept here so the port
+imports nothing of the JAX package (tests/test_torch_isolation.py holds
+the functions equal to the originals). `splat_score_masks_device` is not
+ported; `pixel_score_masks` uses the host splat.
+
+Reference semantics (test.py:269-358):
+  * per-cube MSE scores z-normalized by the block's TRAINING score mean/std
+    (test.py:300-302,338-340)
+  * two-stream fusion: w_raw * raw + w_of * of (test.py:304-307,342-345)
+  * cubes in blocks with no trained model score big_number = 100000
+    (test.py:308-310,346-348)
+  * scores splat into an (h, w) pixel mask initialized at -big_number,
+    running elementwise max over boxes (test.py:350-357); the frame-level
+    score is the mask max (test.py:392)
+"""
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 
 BIG_NUMBER = 100000.0  # test.py:196
+
+
+def fuse_scores(
+    raw_scores: np.ndarray,
+    of_scores: Optional[np.ndarray],
+    raw_stats: Tuple[float, float],
+    of_stats: Optional[Tuple[float, float]],
+    w_raw: float,
+    w_of: float,
+) -> np.ndarray:
+    """Z-normalize each stream by its training stats and fuse."""
+    mu_r, sd_r = raw_stats
+    fused = w_raw * ((raw_scores - mu_r) / sd_r)
+    if of_scores is not None and of_stats is not None:
+        mu_o, sd_o = of_stats
+        fused = fused + w_of * ((of_scores - mu_o) / sd_o)
+    return fused
 
 
 def degenerate_boxes(boxes: np.ndarray) -> np.ndarray:
@@ -17,3 +50,76 @@ def degenerate_boxes(boxes: np.ndarray) -> np.ndarray:
     x1 = np.ceil(boxes[:, 2])
     y1 = np.ceil(boxes[:, 3])
     return (x1 <= x0) | (y1 <= y0)
+
+
+def frame_scores_from_cubes(
+    cube_scores: np.ndarray,
+    frame_ids: np.ndarray,
+    n_frames: int,
+    big_number: float = BIG_NUMBER,
+    boxes: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Per-frame max over cube scores; frames with no cubes get -big_number
+    (the untouched mask init, test.py:276). When `boxes` are given, cubes
+    with an empty splat region are excluded — matching the pixel-mask max
+    exactly."""
+    out = np.full(n_frames, -big_number, dtype=np.float64)
+    if boxes is not None:
+        keep = ~degenerate_boxes(np.asarray(boxes))
+        cube_scores = cube_scores[keep]
+        frame_ids = frame_ids[keep]
+    np.maximum.at(out, frame_ids, cube_scores)
+    return out
+
+
+def normalize_scores_per_video(
+    frame_scores: np.ndarray,
+    frame_video_idx: np.ndarray,
+    big_number: float = BIG_NUMBER,
+) -> np.ndarray:
+    """Min-max normalize frame scores within each video.
+
+    An optional evaluation variant common in the VAD literature (the
+    reference itself normalizes only by training-score statistics); frames
+    with no cubes (score -big_number) map to 0 and are excluded from each
+    video's min/max.
+    """
+    out = np.zeros_like(frame_scores, dtype=np.float64)
+    for v in np.unique(frame_video_idx):
+        sel = frame_video_idx == v
+        s = frame_scores[sel].astype(np.float64)
+        valid = s > -big_number
+        if valid.any():
+            lo, hi = s[valid].min(), s[valid].max()
+            rng = hi - lo if hi > lo else 1.0
+            s = np.where(valid, (s - lo) / rng, 0.0)
+        else:
+            s = np.zeros_like(s)
+        out[sel] = s
+    return out
+
+
+def splat_score_masks(
+    cube_scores: np.ndarray,
+    boxes: np.ndarray,
+    frame_ids: np.ndarray,
+    n_frames: int,
+    frame_hw: Tuple[int, int],
+    big_number: float = BIG_NUMBER,
+) -> np.ndarray:
+    """Full per-frame pixel score masks (test.py:350-358).
+
+    boxes: (M, 4) xyxy; the splat region uses integer-ceil edges like the
+    reference (test.py:354-356). Returns (n_frames, h, w) float32.
+    """
+    h, w = frame_hw
+    masks = np.full((n_frames, h, w), -big_number, dtype=np.float32)
+    x0 = np.ceil(boxes[:, 0]).astype(np.int64)
+    y0 = np.ceil(boxes[:, 1]).astype(np.int64)
+    x1 = np.ceil(boxes[:, 2]).astype(np.int64)
+    y1 = np.ceil(boxes[:, 3]).astype(np.int64)
+    for m in range(cube_scores.shape[0]):
+        f = frame_ids[m]
+        region = masks[f, y0[m] : y1[m], x0[m] : x1[m]]
+        np.maximum(region, cube_scores[m], out=region)
+    return masks

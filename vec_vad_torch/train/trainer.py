@@ -1,0 +1,301 @@
+"""Per-block training of the completion ensemble
+(vec_vad_tpu/train/trainer.py:69-158, 159-651), sequentially on one device.
+
+Reference semantics (train.py:240-437):
+  * per (scene, h, w) block with >1 cubes: fresh model, Adam(lr=1e-3,
+    eps=1e-7, weight_decay=0), `epochs` passes over shuffled batches of
+    `batch_size`, loss = MSE(raw) with detached targets (train.py:307-314)
+  * afterwards one unshuffled eval-mode forward pass collecting per-cube
+    scores: squared error summed over (members, H, W, channels)
+    (train.py:349-355), whose mean/std later z-normalize test scores
+    (test.py:264-266)
+
+The batch schedule is the JAX package's, drawn from the same
+`np.random.default_rng(seed)`: every epoch's permutation in the same
+order, each epoch wrap-padded to a batch multiple with `np.resize` and
+zero-weight slots (`_epoch_schedule`). A block's cubes go to the device
+once, as uint8, and each batch is gathered and scaled there. The masked
+loss equals torch MSELoss over the unpadded batch, and with masked_bn the
+pad mask also drives BatchNorm's statistics, so a wrap-padded final batch
+trains like the reference's bare partial batch.
+
+Not ported (ROADMAP.md): two-stream training (use_flow=True, item 2.6),
+bf16 compute_dtype, the parallel GridTrainer and fit_block_budget.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from vec_vad_torch.config import CompletionConfig
+from vec_vad_torch.device import full_f32, resolve_device
+from vec_vad_torch.models.completion import make_completion_net
+from vec_vad_torch.models.convert import completion_from_jax
+from vec_vad_torch.pipeline import TrainedBlock, to_device
+
+State = Dict[str, torch.Tensor]
+
+
+def require_raw_only(cfg: CompletionConfig) -> None:
+    """Refuse the configurations this slice does not train or score,
+    naming the ROADMAP item that ports them."""
+    if cfg.use_flow:
+        raise NotImplementedError(
+            "two-stream training and scoring (use_flow=True) is not ported "
+            "yet: ROADMAP.md Queue 1 item 2.6"
+        )
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} training is not ported: "
+            "ROADMAP.md Queue 1 item 2.7 (bf16 training)"
+        )
+
+
+def _masked_mean_sq(err: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Mean of err^2 over everything, weighting batch elements by w.
+
+    err is (E, B, P, P, C); w is (B,). Equals torch MSELoss (mean) over the
+    unpadded batch when w is the 0/1 pad mask."""
+    per_elem = err.square().mean(dim=(0, 2, 3, 4))  # (B,)
+    return (per_elem * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def _cube_scores(err: torch.Tensor) -> torch.Tensor:
+    """Per-cube squared error summed over (members, H, W, C) — the
+    reference's channel-concatenated MSE sum (train.py:349-355)."""
+    return err.square().sum(dim=(0, 2, 3, 4))
+
+
+def _quantize_u8(raw: np.ndarray) -> np.ndarray:
+    """[0, 1] float cubes -> the uint8 levels the schedule trains on."""
+    if raw.dtype == np.uint8:
+        return raw
+    return np.clip(np.round(raw * 255.0), 0, 255).astype(np.uint8)
+
+
+class BlockTrainer(nn.Module):
+    """Trains and scores completion-net blocks on one device: one net,
+    re-initialised for every block, and a fresh torch Adam per fit."""
+
+    def __init__(self, cfg: CompletionConfig, patch_size: int = 32,
+                 device="cuda"):
+        super().__init__()
+        require_raw_only(cfg)
+        self.cfg = cfg
+        self.patch_size = patch_size
+        self.device = resolve_device(device)
+        self.net = make_completion_net(cfg, self.device)
+        self.opt: Optional[torch.optim.Adam] = None
+
+    # -- state --------------------------------------------------------------
+
+    def init_state(self, seed: int) -> State:
+        """torch's default initialisation drawn from a CPU torch.Generator
+        seeded with `seed` (the same weights on every device): conv and
+        transposed-conv weights and biases U(±1/sqrt(fan_in)), fan_in the
+        product of the weight's dims 1..3 (torch's rule for both, so
+        I*k*k and O*k*k); BatchNorm scale 1, bias 0, running stats (0, 1)."""
+        g = torch.Generator().manual_seed(int(seed))
+        out = {}
+        for name, t in self.net.state_dict().items():
+            layer, leaf = name.rsplit(".", 1)
+            if leaf == "running_mean":
+                v = torch.zeros(t.shape)
+            elif leaf == "running_var":
+                v = torch.ones(t.shape)
+            elif layer.rsplit(".", 1)[-1].startswith("bn"):
+                v = torch.ones(t.shape) if leaf == "weight" else torch.zeros(t.shape)
+            else:
+                fan = int(np.prod(self.net.get_parameter(f"{layer}.weight").shape[1:]))
+                bound = 1.0 / np.sqrt(fan)
+                v = (torch.rand(t.shape, generator=g) * 2.0 - 1.0) * bound
+            out[name] = v
+        return out
+
+    def state_from_variables(self, params, batch_stats) -> State:
+        """A state from the JAX package's (params, batch_stats) trees — its
+        initial or trained weights, for parity runs and checkpoint import."""
+        return completion_from_jax(params, batch_stats)
+
+    def load_state(self, state: Union[State, TrainedBlock]) -> None:
+        """Weights and running statistics into the net (strict)."""
+        sd = state.state_dict if isinstance(state, TrainedBlock) else state
+        self.net.load_state_dict(sd)
+
+    def start_fit(self, state: State) -> None:
+        """Load `state` and put a fresh Adam around it (optax's adam:
+        eps outside the square root, bias-corrected moments)."""
+        self.load_state(state)
+        self.opt = torch.optim.Adam(
+            self.net.parameters(), lr=self.cfg.learning_rate,
+            eps=self.cfg.adam_eps, foreach=True,
+        )
+
+    def state(self) -> State:
+        """The net's weights and running statistics, copied to the host."""
+        return {k: v.detach().to("cpu", copy=True)
+                for k, v in self.net.state_dict().items()}
+
+    # -- one step -----------------------------------------------------------
+
+    def as_float_input(self, xb: torch.Tensor) -> torch.Tensor:
+        """uint8 cube storage -> ToTensor-scaled float input, on the
+        device; float cubes pass unscaled."""
+        if xb.dtype == torch.uint8:
+            return xb.float() / 255.0
+        return xb.float()
+
+    def loss(self, x: torch.Tensor, w: torch.Tensor,
+             batch_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The training loss of one batch (train-mode forward: it updates
+        the BatchNorm running statistics)."""
+        out = self.net(x, None, True, batch_weight)
+        return _masked_mean_sq(out.raw_out - out.raw_tgt.detach(), w)
+
+    def train_step(self, x: torch.Tensor, w: torch.Tensor,
+                   batch_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One Adam step on one batch (train.py:383-402); returns the loss
+        as a device scalar (no host sync)."""
+        loss = self.loss(x, w, batch_weight)
+        self.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        self.opt.step()
+        return loss.detach()
+
+    # -- host-side loops ----------------------------------------------------
+
+    def upload(self, raw) -> torch.Tensor:
+        """Cubes (numpy or tensor) onto the trainer's device, dtype kept."""
+        return to_device(raw, self.device)
+
+    def _epoch_schedule(self, n: int, rng) -> Tuple[np.ndarray, np.ndarray]:
+        """(idx, wmask) (steps, bsz) arrays scheduling cfg.epochs shuffled
+        passes over n cubes, each epoch cyclically padded to a batch
+        multiple with zero-weight slots (pad may exceed n for blocks
+        smaller than a batch — np.resize wraps)."""
+        cfg = self.cfg
+        bsz = cfg.batch_size
+        steps_per_epoch = -(-n // bsz)
+        idx_rows, w_rows = [], []
+        for _ in range(cfg.epochs):
+            order = rng.permutation(n)
+            pad = steps_per_epoch * bsz - n
+            idx_rows.append(np.concatenate([order, np.resize(order, pad)]))
+            w_rows.append(
+                np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+            )
+        idx = np.concatenate(idx_rows).reshape(-1, bsz).astype(np.int64)
+        wmask = np.concatenate(w_rows).reshape(-1, bsz)
+        return idx, wmask
+
+    def _segment_schedule(self, sizes: List[int], rng):
+        """The streamed form (train.py:292-296): per epoch, per segment,
+        one permutation and its batches, a partial batch wrap-padded from
+        its own start. Returns (segment (steps,), idx, wmask (steps, bsz))."""
+        bsz = self.cfg.batch_size
+        segs, idx_rows, w_rows = [], [], []
+        for _ in range(self.cfg.epochs):
+            for si, n in enumerate(sizes):
+                order = rng.permutation(n)
+                for lo in range(0, n, bsz):
+                    sel = order[lo: lo + bsz]
+                    pad = bsz - sel.size
+                    segs.append(si)
+                    idx_rows.append(np.concatenate([sel, sel[np.arange(pad) % sel.size]]))
+                    w_rows.append(np.concatenate([np.ones(sel.size, np.float32),
+                                                  np.zeros(pad, np.float32)]))
+        return np.array(segs), np.stack(idx_rows), np.stack(w_rows)
+
+    def _run_steps(self, bufs, segs, idx, wmask) -> np.ndarray:
+        """Train on the scheduled steps over device cube buffers. The
+        schedule goes to the device once (a per-step upload from pageable
+        memory would wait for the device every step), and the losses come
+        back in one download."""
+        masked = self.cfg.masked_bn
+        # a full batch's masked statistics are its plain ones: only a
+        # padded batch needs the masked form (decided on the host)
+        padded = wmask.min(axis=1) < 1.0
+        idx_dev = torch.as_tensor(idx, device=self.device)
+        w_dev = torch.as_tensor(wmask, device=self.device)
+        losses = []
+        for s in range(idx.shape[0]):
+            xb = self.as_float_input(bufs[segs[s]].index_select(0, idx_dev[s]))
+            bw = w_dev[s] if masked and padded[s] else None
+            losses.append(self.train_step(xb, w_dev[s], bw))
+        if not losses:
+            return np.zeros(0, np.float32)
+        return torch.stack(losses).cpu().numpy()
+
+    def fit_block(
+        self,
+        raw_inputs: np.ndarray,
+        of_inputs: Optional[np.ndarray] = None,
+        seed: int = 0,
+        log_every: int = 0,
+        segments: Optional[List[Tuple[np.ndarray, Optional[np.ndarray]]]] = None,
+        init_state: Optional[State] = None,
+    ) -> TrainedBlock:
+        """Train one block and collect its training scores.
+
+        raw_inputs: (N, P, P, T*3) uint8 (scaled by 1/255 on the device) or
+        float32 in [0, 1] (quantised to uint8 for training, scored as
+        given); of_inputs is ignored (raw-only). `segments` streams extra
+        (raw, of) chunks per epoch after the first (the ShanghaiTech
+        saveSegNum pattern, train.py:292-296); streamed segments train on
+        their inputs as given."""
+        with full_f32():
+            self.start_fit(init_state if init_state is not None
+                           else self.init_state(seed))
+            rng = np.random.default_rng(seed)
+            if segments:
+                raws = [raw_inputs] + [r for r, _ in segments]
+                bufs = score_bufs = [self.upload(r) for r in raws]
+                segs, idx, wmask = self._segment_schedule(
+                    [r.shape[0] for r in raws], rng)
+            else:
+                bufs = [self.upload(_quantize_u8(raw_inputs))]
+                # the score pass reuses the uploaded uint8 buffer; float
+                # inputs were quantised for training and score as given
+                score_bufs = (bufs if raw_inputs.dtype == np.uint8
+                              else [self.upload(raw_inputs)])
+                idx, wmask = self._epoch_schedule(raw_inputs.shape[0], rng)
+                segs = np.zeros(idx.shape[0], np.int64)
+            losses = self._run_steps(bufs, segs, idx, wmask)
+            if log_every:
+                for s in range(0, losses.size, max(1, log_every)):
+                    print(f"step {s}: raw {losses[s]:.5f} of {0.0:.5f}")
+            scores = [self._score(b) for b in score_bufs]
+        return TrainedBlock(state_dict=self.state(),
+                            raw_scores=np.concatenate(scores),
+                            of_scores=None, losses=losses)
+
+    def _score(self, buf: torch.Tensor, batch_size: Optional[int] = None) -> np.ndarray:
+        """Eval-mode per-cube raw scores of a device cube buffer under the
+        net's current weights, in input order, in one download."""
+        bsz = batch_size or self.cfg.batch_size
+        n = buf.shape[0]
+        out = torch.empty(n, device=self.device)
+        with torch.no_grad():
+            for lo in range(0, n, bsz):
+                o = self.net(self.as_float_input(buf[lo: lo + bsz]), None)
+                out[lo: lo + bsz] = _cube_scores(o.raw_out - o.raw_tgt)
+        return out.cpu().numpy()
+
+    def score_block(
+        self,
+        state_or_block: Union[State, TrainedBlock],
+        raw_inputs,
+        of_inputs: Optional[np.ndarray] = None,
+        batch_size: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Eval-mode per-cube (raw, of) scores, in input order (of is all
+        zeros: raw-only). uint8 cubes are scaled on the device; float
+        cubes are scored unscaled."""
+        with full_f32():
+            self.load_state(state_or_block)
+            raw = self._score(self.upload(raw_inputs), batch_size)
+        return raw, np.zeros_like(raw)
