@@ -74,6 +74,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      cube counts, extraction s, training wall, ms per step, cubes/s,
      scoring frames/s both ways, peak device memory and torch.profiler
      tables of training steps and of one resident scoring call.
+  7. two-stream: the paper's pipeline, calc-flow -> `train` -> `test`,
+     with the 5raw1of model (nf=32, context_of_num 0, useFlow, patch 32,
+     batch 128, 10 epochs, lambda and w 1) over a seeded synthetic tree of
+     uint8 .npy frames at avenue's 360x640 (Train and Test 6 videos of 160
+     frames each) with the generator's boxes as the fixtures.
+     `runner.run_calc_flow` (f32, random-init FlowNet2), `run_train`,
+     then `load_split`, extraction, `score_cubes`, `frame_level_scores`
+     and `evaluate_frame_scores` with and without per-video
+     normalisation, and `infer_frame_scores_resident` with the flow tree.
+     Checks a finite (360, 640, 2) float32 map for every frame, one K1
+     launch per FlowNet2 batch in calc-flow and none in train and test,
+     finite falling losses, finite flow training scores with a nonzero
+     std, the first step's loss and the trained block's raw and flow
+     scores on 512 cubes against the CPU's (1e-4), resident against
+     offline frame scores (2e-4), the reloaded .npz (weights and
+     of_scores bit for bit, cube scores within 2e-4) and finite AUROCs;
+     prints calc-flow maps/s split into decode, batches and writes, the
+     cubes the motion filter dropped, run_train's wall and extraction,
+     ms per step, cubes/s, frames/s both ways, peak device memory and
+     torch.profiler tables of training steps, a resident call and the
+     raw and flow UNet chains alone.
 
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
@@ -110,6 +131,7 @@ from vec_vad_torch.models.flownet import ops as fops
 from vec_vad_torch.ops.stc import pad_boxes
 from vec_vad_torch.pipeline import TrainedBlock, VadModel
 from vec_vad_torch.runtime.artifacts import load_vad_model
+from vec_vad_torch.score import scoring as score_mod
 from vec_vad_torch.serve import FlowStreamingScorer
 from vec_vad_torch.train.trainer import BlockTrainer
 
@@ -142,6 +164,18 @@ TT_CFG = PipelineConfig(
 )
 TT_STEADY = 30  # timed training steps at batch 128 after run_train
 TT_SUBSET = 512  # cubes scored on the card and on the CPU
+# two-stream: a tree at avenue's geometry, 6 + 6 videos of 160 frames
+# (avenue: 16 + 21 videos, 15,328 + 15,324 frames; cut for the script's
+# time and disk: 1,920 flow maps of 1.84 MB), the 5raw1of model at the
+# flagship width
+TS_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_two_stream"
+TS_HW = (360, 640)
+TS_LENGTHS = {"Train": (160,) * 6, "Test": (160,) * 6}
+TS_CFG = PipelineConfig(
+    dataset_name="avenue_npy", fore=ForegroundConfig(patch_size=32),
+    model=CompletionConfig(nf=32, context_frame_num=4, context_of_num=0,
+                           use_flow=True, border_mode="predict"),
+)
 # resident vs offline frame scores (PARITY.md:26): the same cubes and
 # weights, the ensemble run at batches of 2048 against 128
 RESIDENT_TOL = 2e-4
@@ -659,10 +693,10 @@ def flow_batches(n_by_split, chunk: int, segment=None) -> int:
     return total
 
 
-def timed_calc_flow(cfg, **kw):
-    """runner.run_calc_flow on the card, synchronised, with the host's
-    frame decode (readers.read_frame) and .npy writes (the writers of
-    driver.flow_tree_writer) timed; launch counts set to 0 just before
+def timed_calc_flow(cfg, base=CALC_BASE, **kw):
+    """runner.run_calc_flow on the card over `base`, synchronised, with the
+    host's frame decode (readers.read_frame) and .npy writes (the writers
+    of driver.flow_tree_writer) timed; launch counts set to 0 just before
     and read just after. Returns (wall s, decode s, write s, launches)."""
     spent = {"decode": 0.0, "write": 0.0}
     read, make_writer = readers.read_frame, driver.flow_tree_writer
@@ -688,7 +722,7 @@ def timed_calc_flow(cfg, **kw):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        runner.run_calc_flow(cfg, str(CALC_BASE), device="cuda", **kw)
+        runner.run_calc_flow(cfg, str(base), device="cuda", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.launch_counts)
@@ -895,9 +929,9 @@ def device_busy_us(prof) -> float:
     return busy
 
 
-def profile_calls(label: str, fn, rows: int = 15) -> None:
+def profile_calls(label: str, fn, rows: int = 15):
     """torch.profiler over fn(): device time by operator and the device's
-    busy share of the wall."""
+    busy share of the wall; returns the profile."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -911,6 +945,15 @@ def profile_calls(label: str, fn, rows: int = 15) -> None:
     print(f"{label} profile: wall {wall_us / 1e3:.3f} ms, device busy (union of "
           f"kernel and copy intervals) {busy_us / 1e3:.3f} ms "
           f"({100 * busy_us / wall_us:.1f} %)", flush=True)
+    return prof
+
+
+def kernel_us(prof, pattern: str) -> float:
+    """Device time of a profile's kernels whose name holds `pattern`, us."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and pattern in e.key)
 
 
 def timed(fn):
@@ -920,6 +963,66 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def card_cpu_and_steps(label, cfg, base, block, test_cubes, run_step_ms):
+    """What both main-path phases check and time after their run: the
+    first scheduled batch's (loss, loss_raw, loss_of) from init_state(SEED)
+    and the trained block's (raw, of) scores on TT_SUBSET test cubes, card
+    against CPU (LOSS_REL_TOL); then TT_STEADY synchronised steps on the
+    card and a profile of 5. `run_step_ms`: run_train's steps' average
+    (scoring and saving included), printed beside. Returns the card's
+    trainer."""
+    mc, dev = cfg.model, runner.resolve_device("cuda")
+    cubes = runner._extract_cached(cfg, base, "train",
+                                   runner.load_split(cfg, base, "train"),
+                                   cfg.fore.train_block_mode, dev)
+    card_t = BlockTrainer(mc, cfg.fore.patch_size, device=dev)
+    cpu_t = BlockTrainer(mc, cfg.fore.patch_size, device="cpu")
+    idx, w = card_t._epoch_schedule(cubes.size, np.random.default_rng(SEED))
+
+    def batch(t, buf, of_buf, s):  # step s's (x, x_of, w) on t's device
+        ii = torch.as_tensor(idx[s % idx.shape[0]], device=t.device)
+        return (t.as_float_input(buf.index_select(0, ii)), t.flow_rows(of_buf, ii),
+                torch.as_tensor(w[s % idx.shape[0]], device=t.device))
+
+    losses = []
+    for t in (card_t, cpu_t):
+        t.start_fit(t.init_state(SEED))
+        with torch.no_grad():
+            losses.append([float(v) for v in t.loss(*batch(
+                t, t.upload(cubes.raw), t.upload_flow(cubes.flow, cubes.raw.shape), 0))])
+    rel = abs(losses[0][0] - losses[1][0]) / abs(losses[1][0])
+    print(f"{label}: first step's loss (total, raw, flow) card={losses[0]} "
+          f"cpu={losses[1]}, total rel diff={rel:.3e} (bound {LOSS_REL_TOL})")
+    check(rel <= LOSS_REL_TOL, f"card vs CPU first loss {losses}")
+    sub = slice(0, TT_SUBSET)
+    of = None if test_cubes.flow is None else test_cubes.flow[sub]
+    card_sc = card_t.score_block(block, test_cubes.raw[sub], of)
+    cpu_sc = cpu_t.score_block(block, test_cubes.raw[sub], of)
+    rels = [float(np.abs(c - p).max() / max(np.abs(p).max(), 1e-30))
+            for c, p in zip(card_sc, cpu_sc)]
+    print(f"{label}: trained block's scores on {card_sc[0].size} cubes card vs CPU "
+          f"max |diff| / max |score|: raw {rels[0]:.3e}, flow {rels[1]:.3e} (bound "
+          f"{LOSS_REL_TOL}; flow 0 without a flow head)")
+    check(max(rels) <= LOSS_REL_TOL, f"card vs CPU block scores {rels}")
+    del cpu_t
+
+    buf, of_buf = card_t.upload(cubes.raw), card_t.upload_flow(cubes.flow, cubes.raw.shape)
+    card_t.start_fit(card_t.init_state(SEED))
+    step_ms = []
+    for s in range(TT_STEADY):
+        args = batch(card_t, buf, of_buf, s)
+        step_ms.append(timed(lambda: card_t.train_step(*args))[1] * 1e3)
+    med = float(np.median(step_ms[1:]))
+    print(f"{label}: ms per training step (batch {mc.batch_size}, synchronised, "
+          f"steps 2-{TT_STEADY}) {step_stats(step_ms[1:])}; {mc.batch_size * 1e3 / med:.1f} "
+          f"cubes/s at the median; run_train's steps averaged {run_step_ms:.3f} ms "
+          f"with scoring and saving", flush=True)
+    args = batch(card_t, buf, of_buf, 0)
+    profile_calls(f"{label}: 5 training steps",
+                  lambda: [card_t.train_step(*args) for _ in range(5)])
+    return card_t
 
 
 def train_test_phase() -> None:
@@ -1034,55 +1137,212 @@ def train_test_phase() -> None:
           "the reloaded model scores differently")
     check(not launches, f"K1/K2 launched on the main path: {launches}")
 
-    # card vs CPU: the first step's loss from the same init_state, and the
-    # trained block's scores on a cube subset
-    train_cubes = runner._extract_cached(
-        cfg, str(TT_BASE), "train", runner.load_split(cfg, str(TT_BASE), "train"),
-        cfg.fore.train_block_mode, dev)
-    card_t = BlockTrainer(mc, cfg.fore.patch_size, device=dev)
-    cpu_t = BlockTrainer(mc, cfg.fore.patch_size, device="cpu")
-    idx, w = card_t._epoch_schedule(train_cubes.size, np.random.default_rng(SEED))
-    x = train_cubes.raw[idx[0]]
-    losses = []
-    for t in (card_t, cpu_t):
-        t.start_fit(t.init_state(SEED))
-        with torch.no_grad():
-            losses.append(float(t.loss(t.as_float_input(t.upload(x)),
-                                       torch.as_tensor(w[0], device=t.device))))
-    rel = abs(losses[0] - losses[1]) / abs(losses[1])
-    print(f"train-test: first step's loss card={losses[0]:.8f} cpu={losses[1]:.8f} "
-          f"rel diff={rel:.3e} (bound {LOSS_REL_TOL})")
-    check(rel <= LOSS_REL_TOL, f"card vs CPU first loss {losses}")
-    sub = test_cubes.raw[:TT_SUBSET]
-    card_sc = card_t.score_block(block, sub)[0]
-    cpu_sc = cpu_t.score_block(block, sub)[0]
-    rel = float(np.abs(card_sc - cpu_sc).max() / np.abs(cpu_sc).max())
-    print(f"train-test: trained block's scores on {sub.shape[0]} cubes card vs CPU "
-          f"max |diff| / max |score| = {rel:.3e} (bound {LOSS_REL_TOL})")
-    check(rel <= LOSS_REL_TOL, f"card vs CPU block scores {rel}")
-    del cpu_t
-
-    # steady steps at batch 128 (synchronised), then the profiles
-    buf = card_t.upload(train_cubes.raw)
-    card_t.start_fit(card_t.init_state(SEED))
-    step_ms = []
-    for s in range(TT_STEADY):
-        xb = card_t.as_float_input(buf.index_select(0, torch.as_tensor(idx[s], device=dev)))
-        wb = torch.as_tensor(w[s], device=dev)
-        _, dt = timed(lambda: card_t.train_step(xb, wb))
-        step_ms.append(dt * 1e3)
-    med = float(np.median(step_ms[1:]))
-    print(f"train-test: ms per training step (batch {mc.batch_size}, synchronised, "
-          f"steps 2-{TT_STEADY}) {step_stats(step_ms[1:])}; {mc.batch_size * 1e3 / med:.1f} "
-          f"cubes/s at the median; run_train's {steps} steps averaged "
-          f"{(wall - extract_s[0]) * 1e3 / steps:.3f} ms with scoring and saving",
-          flush=True)
-    xb = card_t.as_float_input(buf.index_select(0, torch.as_tensor(idx[0], device=dev)))
-    wb = torch.as_tensor(w[0], device=dev)
-    profile_calls("train-test: 5 training steps",
-                  lambda: [card_t.train_step(xb, wb) for _ in range(5)])
+    card_cpu_and_steps("train-test", cfg, str(TT_BASE), block, test_cubes,
+                       (wall - extract_s[0]) * 1e3 / steps)
     profile_calls("train-test: one resident scoring call", resident)
     shutil.rmtree(TT_BASE, ignore_errors=True)
+
+
+def two_stream_phase() -> int:
+    """The two-stream main path on the card: calc-flow, run_train, the
+    card-side steps of run_test with and without per-video normalisation,
+    and the resident scorer with the flow tree, each checked (module
+    docstring, phase 7). Returns K1's launches in calc-flow."""
+    shutil.rmtree(TS_BASE, ignore_errors=True)
+    cfg, mc = TS_CFG, TS_CFG.model
+    config.register_dataset(dataclasses.replace(
+        config.DATASETS["avenue"], name=cfg.dataset_name, file_ext=".npy"))
+    dev = runner.resolve_device("cuda")
+    base = str(TS_BASE)
+    raw_root = TS_BASE / cfg.raw_dataset_dir / cfg.dataset_name
+    t0 = time.perf_counter()
+    labels = write_train_test_tree(raw_root, SEED + 8, TS_LENGTHS, TS_HW)
+    n_by_split = [sum(TS_LENGTHS[s]) for s in ("Train", "Test")]
+    print(f"two-stream: wrote {n_by_split[0]} train and {n_by_split[1]} test frames "
+          f"at {TS_HW} in {time.perf_counter() - t0:.1f} s (set-up)", flush=True)
+
+    # 1. calc-flow over both splits with the runner's random-init FlowNet2,
+    # its batches counted by a forward hook
+    batches = []
+    make = runner.make_flownet2
+
+    def counted(seed, device):
+        net = make(seed, device)
+        net.register_forward_hook(lambda m, i, o: batches.append(i[0].shape[0]))
+        return net
+
+    runner.make_flownet2 = counted
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        wall, decode, write, calc_launches = timed_calc_flow(cfg, TS_BASE,
+                                                             flow_dtype="float32")
+    finally:
+        runner.make_flownet2 = make
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(n_by_split)
+    want = flow_batches(n_by_split, 4)
+    print(f"two-stream: calc-flow {n} maps in {wall:.3f} s, {n / wall:.2f} maps/s; "
+          f"decode {decode:.3f} s, FlowNet2 batches (upload and download included) "
+          f"{wall - decode - write:.3f} s, .npy writes {write:.3f} s; {len(batches)} "
+          f"batches of {max(batches)}, launches {calc_launches} for {want} batches; "
+          f"peak device memory {peak / 2**20:.1f} MiB", flush=True)
+    check(sum(batches) == n and len(batches) == want
+          and calc_launches == {"correlation": want},
+          f"calc-flow launches {calc_launches}, {len(batches)} batches, {want} expected")
+    of_root = TS_BASE / cfg.optical_flow_dir / cfg.dataset_name
+    maps = sorted(of_root.rglob("*.npy"))
+    check(len(maps) == n, f"{len(maps)} flow maps for {n} frames")
+    flow_max = 0.0
+    for path in maps:
+        m = np.load(path)
+        check(m.dtype == np.float32 and m.shape == TS_HW + (2,) and np.isfinite(m).all(),
+              f"flow map {path}: {m.dtype} {m.shape}")
+        flow_max = max(flow_max, float(np.abs(m).max()))
+    print(f"two-stream: {n} finite {TS_HW + (2,)} float32 maps, max |flow| "
+          f"{flow_max:.4f} (random-init FlowNet2: not optical flow)", flush=True)
+
+    # 2. run_train: both streams, no K1 or K2
+    extract_s = []
+    extract = pipeline.extract_cube_set
+
+    def timed_extract(*a, **k):  # run_train's extraction, synchronised
+        out, dt = timed(lambda: extract(*a, **k))
+        extract_s.append(dt)
+        return out
+
+    pipeline.extract_cube_set = runner.extract_cube_set = timed_extract
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    try:
+        (model, path), wall = timed(lambda: runner.run_train(cfg, base, seed=SEED,
+                                                              device=dev))
+    finally:
+        pipeline.extract_cube_set = runner.extract_cube_set = extract
+    train_launches = dict(kernels.launch_counts)
+    check(sorted(model.blocks) == [(0, 0, 0)], f"trained blocks {sorted(model.blocks)}")
+    block = model.blocks[(0, 0, 0)]
+    n_train = block.raw_scores.size
+    n_boxes = sum(len(b) for b in runner.load_split(cfg, base, "train").boxes)
+    steps = block.losses.size
+    per_epoch = -(-n_train // mc.batch_size)
+    first, last = block.losses[:per_epoch].mean(), block.losses[-per_epoch:].mean()
+    check(block.of_scores is not None and block.of_scores.shape == (n_train,)
+          and np.isfinite(block.of_scores).all(), "of_scores missing or not finite")
+    (mu_r, sd_r), (mu_o, sd_o) = block.raw_stats, block.of_stats
+    print(f"two-stream: run_train {n_train} train cubes ({n_boxes} boxes, "
+          f"{n_boxes - n_train} dropped by the motion filter at motion_thr "
+          f"{cfg.fore.motion_thr}), {steps} steps in {mc.epochs} epochs, {wall:.2f} s "
+          f"wall (extraction {extract_s[0]:.2f} s, cube cache write and model save "
+          f"included); mean total loss epoch 1 {first:.6f}, epoch {mc.epochs} "
+          f"{last:.6f}; training scores raw mean {mu_r:.4f} std {sd_r:.4f}, flow "
+          f"mean {mu_o:.4f} std {sd_o:.4f}; launches {train_launches}", flush=True)
+    check(steps == mc.epochs * per_epoch and np.isfinite(block.losses).all(),
+          f"{steps} losses, finite {np.isfinite(block.losses).all()}")
+    check(last < first, f"losses do not fall: {first} -> {last}")
+    check(sd_o > 0, f"the flow training scores' std is {sd_o}")
+
+    # 3. the card-side steps of run_test, with and without per-video
+    # normalisation
+    kernels.reset_launch_counts()
+    data, load_s = timed(lambda: runner.load_split(cfg, base, "test"))
+    check(data.flow is not None, "load_split found no flow tree")
+    test_cubes, test_extract_s = timed(lambda: runner._extract_cached(
+        cfg, base, "test", data, cfg.fore.test_block_mode, dev))
+    n_frames = data.index.total_frames
+    cube_scores, score_s = timed(lambda: pipeline.score_cubes(model, test_cubes,
+                                                              device=dev))
+    frame_scores = pipeline.frame_level_scores(cube_scores, test_cubes, n_frames)
+    aurocs = {}
+    for name, fs in (("", frame_scores),
+                     (" per-video", score_mod.normalize_scores_per_video(
+                         frame_scores, data.index.frame_video_idx))):
+        results = TS_BASE / "results" / (name.strip() or "raw")
+        results.mkdir(parents=True, exist_ok=True)
+        check(np.isfinite(fs).all() and fs.shape == (n_frames,), f"frame scores {fs.shape}")
+        aurocs[name] = runner.evaluate_frame_scores(
+            cfg, str(results), fs, labels, data.index.scene_idx)["auroc"]
+        check(np.isfinite(aurocs[name]), f"AUROC{name} {aurocs[name]}")
+    n_test_boxes = sum(len(b) for b in data.boxes)
+    print(f"two-stream: test split {n_frames} frames, {test_cubes.size} cubes "
+          f"({n_test_boxes - test_cubes.size} dropped by the motion filter); "
+          f"load_split {load_s:.2f} s, extraction {test_extract_s:.2f} s, "
+          f"score_cubes {score_s:.3f} s ({n_frames / score_s:.1f} frames/s offline, "
+          f"{n_frames / (test_extract_s + score_s):.1f} with extraction); AUROC "
+          f"{aurocs['']:.6f}, with per-video normalisation {aurocs[' per-video']:.6f}",
+          flush=True)
+
+    # 4. the resident scorer on the same model, frames and flow
+    frames_np = np.asarray(data.frames)
+    flow_np = data.flow[0:n_frames]
+    windows = data.index.context_indices(mc.context_frame_num, mc.border_mode)
+    of_windows = data.index.context_indices(mc.context_of_num,
+                                            mc.border_mode).reshape(n_frames, -1)
+    peak_boxes = max(len(b) for b in data.boxes)
+    boxes_pad, valid = pad_boxes(data.boxes, max(-(-peak_boxes // 8) * 8, 8))
+    net = make_completion_net(mc, dev)
+
+    def resident():
+        return infer_frame_scores_resident(
+            cfg, block.state_dict, block.raw_stats + block.of_stats, frames_np,
+            windows, boxes_pad, valid, flow=flow_np, of_windows=of_windows, net=net,
+            device=dev)
+
+    resident()  # warm
+    res_scores, res_s = timed(resident)
+    test_launches = dict(kernels.launch_counts)
+    diff = np.abs(res_scores.astype(np.float64) - frame_scores)
+    print(f"two-stream: resident scoring {n_frames} frames in {res_s:.3f} s "
+          f"({n_frames / res_s:.1f} frames/s, frame and flow upload and cube "
+          f"extraction included); against score_cubes -> frame_level_scores max "
+          f"|diff| {diff.max():.3e}, / max |score| "
+          f"{diff.max() / np.abs(frame_scores).max():.3e} (bound rtol=atol="
+          f"{RESIDENT_TOL})", flush=True)
+    check(np.allclose(res_scores, frame_scores, rtol=RESIDENT_TOL, atol=RESIDENT_TOL),
+          f"resident vs offline frame scores, max |diff| {diff.max()}")
+
+    # the saved .npz: weights and of_scores bit for bit, cube scores within
+    # the resident bound (cuDNN's sums differ call to call)
+    loaded = load_vad_model(path).blocks[(0, 0, 0)]
+    check(all(torch.equal(loaded.state_dict[k], v.cpu())
+              for k, v in block.state_dict.items())
+          and np.array_equal(loaded.raw_scores, block.raw_scores)
+          and np.array_equal(loaded.of_scores, block.of_scores),
+          "the reloaded model differs from the trained one")
+    again = pipeline.score_cubes(VadModel(cfg=cfg, blocks={(0, 0, 0): loaded}),
+                                 test_cubes, device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**train_launches, **test_launches, **dict(kernels.launch_counts)}
+    print(f"two-stream: reloaded {Path(path).name}: weights and of_scores bit for bit, "
+          f"cube scores max |diff| {np.abs(again - cube_scores).max():.3e} against the "
+          f"trained model's; peak device memory {peak / 2**20:.1f} MiB; K1/K2 launches "
+          f"in train and test {launches}", flush=True)
+    check(np.allclose(again, cube_scores, rtol=RESIDENT_TOL, atol=RESIDENT_TOL),
+          "the reloaded model scores differently")
+    check(not launches, f"K1/K2 launched in train or test: {launches}")
+
+    card_t = card_cpu_and_steps("two-stream", cfg, base, block, test_cubes,
+                                (wall - extract_s[0]) * 1e3 / steps)
+    profile_calls("two-stream: one resident scoring call", resident)
+    # the raw chain (grouped, 5 members) and the flow chain (one member,
+    # ungrouped) alone: 5 train-mode forward + backward passes each
+    ch = mc.context_frame_num * 3
+    for name, unet, members in (("raw", card_t.net.raw_unets, 5),
+                                ("flow", card_t.net.of_unets, 1)):
+        xin = torch.rand((mc.batch_size, members * ch) + (cfg.fore.patch_size,) * 2,
+                         device=dev)
+
+        def passes():
+            for _ in range(5):
+                unet(xin, True).square().mean().backward()
+
+        passes()  # warm
+        prof = profile_calls(f"two-stream: {name} chain alone, 5 forward + backward",
+                             passes, rows=8)
+        print(f"two-stream: {name} chain: layout transposes (genericTranspose) "
+              f"{kernel_us(prof, 'Transpose') / 5e3:.3f} ms a pass of "
+              f"{device_busy_us(prof) / 5e3:.3f} ms busy", flush=True)
+    shutil.rmtree(TS_BASE, ignore_errors=True)
+    return want
 
 
 def main() -> int:
@@ -1207,17 +1467,22 @@ def main() -> int:
 
     # -- train-test phase: the raw-only main path ----------------------------
     train_test_phase()
-    phase_done("train-test", t_phase)
+    t_phase = phase_done("train-test", t_phase)
+
+    # -- two-stream phase: calc-flow -> 5raw1of train -> test ---------------
+    ts_launches = two_stream_phase()
+    phase_done("two-stream", t_phase)
 
     rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"],
                                calc["fwd_err"]))
     rec_bwd.update(max_abs_err=max(rec_bwd["max_abs_err"], train["bwd_err"]))
     k1 = (launches.get("correlation", 0) + train["launches"]["correlation"]
-          + ft_launches["correlation"] + calc["launches"])
+          + ft_launches["correlation"] + calc["launches"] + ts_launches)
     k2 = train["launches"]["correlation_bwd"] + ft_launches["correlation_bwd"]
     print(f"launches on the main paths: K1 {k1} (serving {launches.get('correlation', 0)}, "
           f"FlowNetC training {train['launches']['correlation']}, FlowNet2 steps "
-          f"{ft_launches['correlation']}, calc-flow {calc['launches']}); K2 {k2}")
+          f"{ft_launches['correlation']}, calc-flow {calc['launches']}, two-stream "
+          f"calc-flow {ts_launches}); K2 {k2}")
     # no single PyTorch call computes the cost volume or its gradients
     record = {"kernels": [
         {"name": "correlation_fwd", "route": "cuda",

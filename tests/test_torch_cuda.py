@@ -209,3 +209,23 @@ def test_fit_block_on_card_matches_cpu(cuda):
     card, cpu = (b.raw_scores for b in blocks)
     assert np.isfinite(blocks[0].losses).all()
     np.testing.assert_allclose(card, cpu, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_two_stream_fit_block_on_card_matches_cpu(cuda):
+    """The same for a 5raw1of block with its float flow cubes: raw and
+    flow training scores within 1e-4 relative, card against CPU."""
+    from vec_vad_torch.config import CompletionConfig
+    from vec_vad_torch.train.trainer import BlockTrainer
+
+    cfg = CompletionConfig(nf=4, epochs=2, batch_size=16, context_of_num=0,
+                           use_flow=True)
+    rng = np.random.default_rng(4)
+    raw = rng.integers(0, 256, (40, 16, 16, 15), dtype=np.uint8)
+    of = rng.normal(0.0, 2.0, (40, 16, 16, 2)).astype(np.float32)
+    blocks = [BlockTrainer(cfg, 16, device=d).fit_block(raw, of, seed=2)
+              for d in (cuda, "cpu")]
+    assert np.isfinite(blocks[0].losses).all()
+    for k in ("raw_scores", "of_scores"):
+        np.testing.assert_allclose(getattr(blocks[0], k), getattr(blocks[1], k),
+                                   rtol=1e-4)

@@ -287,7 +287,7 @@ def test_training_forward_loss_and_grads_match_jax(masked_bn):
         st.params, st.batch_stats, jnp.asarray(x), None, jnp.asarray(w))
     tt.start_fit(tt.state_from_variables(params, stats))
     wt = torch.from_numpy(w)
-    tloss = tt.loss(torch.from_numpy(x), wt, wt if masked_bn else None)
+    tloss, _, _ = tt.loss(torch.from_numpy(x), None, wt, wt if masked_bn else None)
     tloss.backward()
     assert abs(float(tloss.detach()) - float(jloss)) <= 1e-5 * abs(float(jloss))
     want = completion_from_jax(jax.tree.map(np.asarray, jgrads), stats)
@@ -317,7 +317,7 @@ def test_adam_step_matches_jax():
     step = jax.jit(make_train_step(jt.net, jcfg.model, jt.tx))
     jst, _ = step(st, jnp.asarray(x), jnp.zeros((BATCH, P, P, 2)), jnp.asarray(w))
     tt.start_fit(tt.state_from_variables(params, stats))
-    tt.train_step(torch.from_numpy(x), torch.from_numpy(w))
+    tt.train_step(torch.from_numpy(x), None, torch.from_numpy(w))
     want = completion_from_jax(jax.tree.map(np.asarray, jst.params),
                                jax.tree.map(np.asarray, jst.batch_stats))
     before = completion_from_jax(params, stats)
@@ -674,14 +674,14 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
 def test_left_out_routes_refuse_by_name(tmp_path):
     """What the slice does not port raises and names its ROADMAP item."""
     jcfg, tcfg = _configs()
-    flow_cfg = tcfg.model.__class__(nf=NF, context_of_num=0, use_flow=True)
     bf16 = dataclasses.replace(tcfg.model, compute_dtype="bfloat16")
+    bf16_flow = dataclasses.replace(bf16, context_of_num=0, use_flow=True)
     cubes = t_pipe.CubeSet(_cubes(0, 4), None, np.zeros(4, np.int64),
                            np.zeros((4, 4), np.float32), np.zeros((4, 2), np.int64),
                            np.ones(4, np.int64))
     for call, item in [
-        (lambda: BlockTrainer(flow_cfg, P, device="cpu"), "item 2.6"),
         (lambda: BlockTrainer(bf16, P, device="cpu"), "item 2.7"),
+        (lambda: BlockTrainer(bf16_flow, P, device="cpu"), "item 2.7"),
         (lambda: t_pipe.train_model(tcfg, cubes, parallel_blocks=True,
                                     device="cpu"), "item 2.8"),
         (lambda: t_runner.run_train(tcfg, str(tmp_path), resident=True,

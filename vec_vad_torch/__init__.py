@@ -19,11 +19,11 @@ Ported so far:
     checkpoint loading, and the flow-train / flow-infer CLI
     (`python -m vec_vad_torch`);
   * calc-flow — runner.run_calc_flow and the calc-flow CLI;
-  * the raw-only main path — runner.run_train / run_test over
-    pipeline.extract_cube_set, train.trainer.BlockTrainer and
-    pipeline.score_cubes, infer.infer_frame_scores_resident, the AUROC of
-    eval.metrics, models saved in the JAX package's .npz layout, and the
-    train / test CLI.
+  * the main path, raw-only and two-stream (5raw1of over the calc-flow
+    tree) — runner.run_train / run_test over pipeline.extract_cube_set,
+    train.trainer.BlockTrainer and pipeline.score_cubes,
+    infer.infer_frame_scores_resident, the AUROC of eval.metrics, models
+    saved in the JAX package's .npz layout, and the train / test CLI.
 The FlowNetC correlation is differentiable and runs as hand-written CUDA
 kernels on the card: csrc/correlation.cu forward, csrc/correlation_bwd.cu
 backward.

@@ -10,8 +10,10 @@ plain PyTorch path).
         --net FlowNetC --loss multiscale --norm L1
     python -m vec_vad_torch flow-infer --data-root TREE --workdir WD
 
-train and test keep `--resident` and test `--pixel-criterion`, which
-refuse to run (not ported, ROADMAP.md Queue 1 items 2.9 and 2.10).
+With `useFlow = True` in the config and the tree calc-flow wrote, train
+and test run the two-stream model. train and test keep `--resident` and
+test `--pixel-criterion`, which refuse to run (not ported, ROADMAP.md
+Queue 1 items 2.9 and 2.10).
 calc-flow has no `--no-mesh`: the JAX package's data-parallel mesh is not
 ported. The other subcommands of vec_vad_tpu are not ported yet
 (ROADMAP.md).

@@ -14,10 +14,14 @@
 Also the trained-model containers serving reads (VadModel, TrainedBlock),
 holding torch state dicts in place of flax trees.
 
+Two-stream (use_flow=True) blocks train on the flow cubes beside the raw
+ones and fuse w_raw * z(raw) + w_of * z(of) when scored (test.py:330-345);
+a two-stream block scoring a split without a flow tree scores its flow
+head against zero targets and still fuses, as the JAX package does.
+
 Not ported (ROADMAP.md Queue 1): the parallel GridTrainer and its
 multi-block auto-selection (item 2.8), extract_cube_set_resident
-(item 2.9), two-stream training and scoring (item 2.6) and the device
-splat of pixel_score_masks (item 2.10).
+(item 2.9) and the device splat of pixel_score_masks (item 2.10).
 """
 
 from __future__ import annotations

@@ -12,6 +12,9 @@ Layout conventions match the reference:
 
 Every entry point runs on `device` (the card unless the caller passes
 device="cpu"), its f32 convolutions with TF32 off (device.full_f32).
+With a flow tree under optical_flow/ and a two-stream config
+(useFlow = True), `run_train` trains both streams and `run_test` scores
+and fuses them: calc-flow -> train -> test is the paper's pipeline.
 Not ported (ROADMAP.md): computing boxes where no fixture exists and
 `run_precompute_boxes` (item 4.1), the resident extraction (item 2.9),
 the pixel criterion (item 2.10) and calc-flow's mesh (item 5).
@@ -119,10 +122,17 @@ def _extract_cached(
         (p, os.path.getsize(p), os.path.getmtime(p))
         for p in data.index.frame_paths
     ]
+    # and the flow tree's: a rerun of calc-flow (another checkpoint) would
+    # otherwise serve flow cubes cut from the old maps (mtimes in ns: a
+    # rewrite right after the first write still differs).
+    flow_sig = [
+        (p, st.st_size, st.st_mtime_ns)
+        for p, st in ((p, os.stat(p)) for p in data.flow.paths)
+    ] if data.flow is not None else None
     fp = fingerprint(
         cfg.fore, cfg.model.context_frame_num, cfg.model.context_of_num,
         cfg.model.border_mode, split, block_mode, data.index.total_frames,
-        boxes_blob, data.flow is not None, frames_sig,
+        boxes_blob, data.flow is not None, frames_sig, flow_sig,
     )
 
     def compute():

@@ -4,9 +4,10 @@
 Reference semantics (train.py:240-437):
   * per (scene, h, w) block with >1 cubes: fresh model, Adam(lr=1e-3,
     eps=1e-7, weight_decay=0), `epochs` passes over shuffled batches of
-    `batch_size`, loss = MSE(raw) with detached targets (train.py:307-314)
+    `batch_size`, loss = lambda_raw*MSE(raw) + lambda_of*MSE(of) with
+    detached targets (train.py:307-314), MSE(raw) alone without a flow head
   * afterwards one unshuffled eval-mode forward pass collecting per-cube
-    scores: squared error summed over (members, H, W, channels)
+    (raw, of) scores: squared error summed over (members, H, W, channels)
     (train.py:349-355), whose mean/std later z-normalize test scores
     (test.py:264-266)
 
@@ -14,13 +15,19 @@ The batch schedule is the JAX package's, drawn from the same
 `np.random.default_rng(seed)`: every epoch's permutation in the same
 order, each epoch wrap-padded to a batch multiple with `np.resize` and
 zero-weight slots (`_epoch_schedule`). A block's cubes go to the device
-once, as uint8, and each batch is gathered and scaled there. The masked
-loss equals torch MSELoss over the unpadded batch, and with masked_bn the
-pad mask also drives BatchNorm's statistics, so a wrap-padded final batch
-trains like the reference's bare partial batch.
+once, as uint8, and each batch is gathered and scaled there; its flow
+cubes go up once beside them as float32 (never quantised) and are gathered
+with the same index. The masked loss equals torch MSELoss over the
+unpadded batch, and with masked_bn the pad mask also drives BatchNorm's
+statistics, so a wrap-padded final batch trains like the reference's bare
+partial batch.
 
-Not ported (ROADMAP.md): two-stream training (use_flow=True, item 2.6),
-bf16 compute_dtype, the parallel GridTrainer and fit_block_budget.
+A two-stream block fitted without flow inputs trains and scores its flow
+head against zero targets and keeps of_scores=None, as the JAX package
+does (its 1-row zero dummy read through a clamped index).
+
+Not ported (ROADMAP.md Queue 1): bf16 compute_dtype (item 2.7), the
+parallel GridTrainer (item 2.8) and fit_block_budget (item 2.11).
 """
 
 from __future__ import annotations
@@ -40,14 +47,9 @@ from vec_vad_torch.pipeline import TrainedBlock, to_device
 State = Dict[str, torch.Tensor]
 
 
-def require_raw_only(cfg: CompletionConfig) -> None:
-    """Refuse the configurations this slice does not train or score,
-    naming the ROADMAP item that ports them."""
-    if cfg.use_flow:
-        raise NotImplementedError(
-            "two-stream training and scoring (use_flow=True) is not ported "
-            "yet: ROADMAP.md Queue 1 item 2.6"
-        )
+def require_f32(cfg: CompletionConfig) -> None:
+    """Refuse the training dtype the port does not train or score in,
+    naming the ROADMAP item that ports it."""
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r} training is not ported: "
@@ -84,7 +86,7 @@ class BlockTrainer(nn.Module):
     def __init__(self, cfg: CompletionConfig, patch_size: int = 32,
                  device="cuda"):
         super().__init__()
-        require_raw_only(cfg)
+        require_f32(cfg)
         self.cfg = cfg
         self.patch_size = patch_size
         self.device = resolve_device(device)
@@ -149,28 +151,59 @@ class BlockTrainer(nn.Module):
             return xb.float() / 255.0
         return xb.float()
 
-    def loss(self, x: torch.Tensor, w: torch.Tensor,
-             batch_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The training loss of one batch (train-mode forward: it updates
-        the BatchNorm running statistics)."""
-        out = self.net(x, None, True, batch_weight)
-        return _masked_mean_sq(out.raw_out - out.raw_tgt.detach(), w)
+    def loss(self, x: torch.Tensor, x_of: Optional[torch.Tensor],
+             w: torch.Tensor, batch_weight: Optional[torch.Tensor] = None,
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(loss, loss_raw, loss_of) of one batch (train-mode forward: it
+        updates the BatchNorm running statistics). x_of: the batch's flow
+        cubes, read only by a flow head; without one the loss is loss_raw
+        and loss_of is 0."""
+        out = self.net(x, x_of, True, batch_weight)
+        loss_raw = _masked_mean_sq(out.raw_out - out.raw_tgt.detach(), w)
+        if out.of_out is None:
+            return loss_raw, loss_raw, torch.zeros_like(loss_raw)
+        loss_of = _masked_mean_sq(out.of_out - out.of_tgt.detach(), w)
+        cfg = self.cfg
+        return cfg.lambda_raw * loss_raw + cfg.lambda_of * loss_of, loss_raw, loss_of
 
-    def train_step(self, x: torch.Tensor, w: torch.Tensor,
+    def train_step(self, x: torch.Tensor, x_of: Optional[torch.Tensor],
+                   w: torch.Tensor,
                    batch_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One Adam step on one batch (train.py:383-402); returns the loss
-        as a device scalar (no host sync)."""
-        loss = self.loss(x, w, batch_weight)
+        """One Adam step on one batch (train.py:383-402); returns
+        (loss, loss_raw, loss_of) as one (3,) device tensor (no host sync)."""
+        losses = self.loss(x, x_of, w, batch_weight)
         self.opt.zero_grad(set_to_none=True)
-        loss.backward()
+        losses[0].backward()
         self.opt.step()
-        return loss.detach()
+        return torch.stack(losses).detach()
 
     # -- host-side loops ----------------------------------------------------
 
     def upload(self, raw) -> torch.Tensor:
         """Cubes (numpy or tensor) onto the trainer's device, dtype kept."""
         return to_device(raw, self.device)
+
+    def upload_flow(self, of_inputs, raw_shape) -> Optional[torch.Tensor]:
+        """The flow rows a batch's x_of is gathered from, on the device:
+        of_inputs as float32; when a flow head fires without flow inputs,
+        one zero row (the JAX package's 1-row dummy: every clamped read of
+        it is zeros); None when no flow head fires."""
+        if self.net.of_unets is None:
+            return None
+        if of_inputs is None:
+            n_of = self.net.tot_of_num * self.net.of_channels
+            return torch.zeros((1,) + tuple(raw_shape[1:-1]) + (n_of,),
+                               device=self.device)
+        return self.upload(of_inputs).float()
+
+    @staticmethod
+    def flow_rows(of_buf: Optional[torch.Tensor],
+                  ii: torch.Tensor) -> Optional[torch.Tensor]:
+        """Rows ii of a flow buffer, indices clamped to its last row
+        (jnp.take of jnp.minimum(ii, n - 1), as the JAX package reads)."""
+        if of_buf is None:
+            return None
+        return of_buf.index_select(0, ii.clamp(max=of_buf.shape[0] - 1))
 
     def _epoch_schedule(self, n: int, rng) -> Tuple[np.ndarray, np.ndarray]:
         """(idx, wmask) (steps, bsz) arrays scheduling cfg.epochs shuffled
@@ -210,11 +243,12 @@ class BlockTrainer(nn.Module):
                                                   np.zeros(pad, np.float32)]))
         return np.array(segs), np.stack(idx_rows), np.stack(w_rows)
 
-    def _run_steps(self, bufs, segs, idx, wmask) -> np.ndarray:
-        """Train on the scheduled steps over device cube buffers. The
-        schedule goes to the device once (a per-step upload from pageable
-        memory would wait for the device every step), and the losses come
-        back in one download."""
+    def _run_steps(self, bufs, of_bufs, segs, idx, wmask) -> np.ndarray:
+        """Train on the scheduled steps over device cube buffers and their
+        flow buffers (upload_flow). The schedule goes to the device once (a
+        per-step upload from pageable memory would wait for the device
+        every step), and the (steps, 3) losses (loss, loss_raw, loss_of)
+        come back in one download."""
         masked = self.cfg.masked_bn
         # a full batch's masked statistics are its plain ones: only a
         # padded batch needs the masked form (decided on the host)
@@ -223,11 +257,13 @@ class BlockTrainer(nn.Module):
         w_dev = torch.as_tensor(wmask, device=self.device)
         losses = []
         for s in range(idx.shape[0]):
-            xb = self.as_float_input(bufs[segs[s]].index_select(0, idx_dev[s]))
+            ii = idx_dev[s]
+            xb = self.as_float_input(bufs[segs[s]].index_select(0, ii))
+            ob = self.flow_rows(of_bufs[segs[s]], ii)
             bw = w_dev[s] if masked and padded[s] else None
-            losses.append(self.train_step(xb, w_dev[s], bw))
+            losses.append(self.train_step(xb, ob, w_dev[s], bw))
         if not losses:
-            return np.zeros(0, np.float32)
+            return np.zeros((0, 3), np.float32)
         return torch.stack(losses).cpu().numpy()
 
     def fit_block(
@@ -243,10 +279,14 @@ class BlockTrainer(nn.Module):
 
         raw_inputs: (N, P, P, T*3) uint8 (scaled by 1/255 on the device) or
         float32 in [0, 1] (quantised to uint8 for training, scored as
-        given); of_inputs is ignored (raw-only). `segments` streams extra
-        (raw, of) chunks per epoch after the first (the ShanghaiTech
-        saveSegNum pattern, train.py:292-296); streamed segments train on
-        their inputs as given."""
+        given); of_inputs: (N, P, P, T_of*2) float32 flow cubes, trained
+        and scored unscaled, or None. `segments` streams extra (raw, of)
+        chunks per epoch after the first (the ShanghaiTech saveSegNum
+        pattern, train.py:292-296); streamed segments train on their
+        inputs as given. of_scores is None unless the config fuses flow
+        and of_inputs is given (the JAX package's "trained without a flow
+        stream" marker)."""
+        cfg = self.cfg
         with full_f32():
             self.start_fit(init_state if init_state is not None
                            else self.init_state(seed))
@@ -254,6 +294,8 @@ class BlockTrainer(nn.Module):
             if segments:
                 raws = [raw_inputs] + [r for r, _ in segments]
                 bufs = score_bufs = [self.upload(r) for r in raws]
+                of_bufs = [self.upload_flow(o, r.shape) for r, o in
+                           zip(raws, [of_inputs] + [o for _, o in segments])]
                 segs, idx, wmask = self._segment_schedule(
                     [r.shape[0] for r in raws], rng)
             else:
@@ -262,28 +304,40 @@ class BlockTrainer(nn.Module):
                 # inputs were quantised for training and score as given
                 score_bufs = (bufs if raw_inputs.dtype == np.uint8
                               else [self.upload(raw_inputs)])
+                of_bufs = [self.upload_flow(of_inputs, raw_inputs.shape)]
                 idx, wmask = self._epoch_schedule(raw_inputs.shape[0], rng)
                 segs = np.zeros(idx.shape[0], np.int64)
-            losses = self._run_steps(bufs, segs, idx, wmask)
+            losses = self._run_steps(bufs, of_bufs, segs, idx, wmask)
             if log_every:
-                for s in range(0, losses.size, max(1, log_every)):
-                    print(f"step {s}: raw {losses[s]:.5f} of {0.0:.5f}")
-            scores = [self._score(b) for b in score_bufs]
-        return TrainedBlock(state_dict=self.state(),
-                            raw_scores=np.concatenate(scores),
-                            of_scores=None, losses=losses)
+                for s in range(0, losses.shape[0], max(1, log_every)):
+                    print(f"step {s}: raw {losses[s, 1]:.5f} of {losses[s, 2]:.5f}")
+            scores = [self._score(b, o) for b, o in zip(score_bufs, of_bufs)]
+        has_of = cfg.use_flow and of_inputs is not None
+        return TrainedBlock(
+            state_dict=self.state(),
+            raw_scores=np.concatenate([r for r, _ in scores]),
+            of_scores=np.concatenate([o for _, o in scores]) if has_of else None,
+            losses=losses[:, 0],
+        )
 
-    def _score(self, buf: torch.Tensor, batch_size: Optional[int] = None) -> np.ndarray:
-        """Eval-mode per-cube raw scores of a device cube buffer under the
-        net's current weights, in input order, in one download."""
+    def _score(self, buf: torch.Tensor, of_buf: Optional[torch.Tensor],
+               batch_size: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Eval-mode per-cube (raw, of) scores of a device cube buffer and
+        its flow buffer (upload_flow) under the net's current weights, in
+        input order, in one download; of is 0 without a flow head."""
         bsz = batch_size or self.cfg.batch_size
         n = buf.shape[0]
-        out = torch.empty(n, device=self.device)
+        out = torch.zeros((2, n), device=self.device)
+        rows = torch.arange(n, device=self.device)
         with torch.no_grad():
             for lo in range(0, n, bsz):
-                o = self.net(self.as_float_input(buf[lo: lo + bsz]), None)
-                out[lo: lo + bsz] = _cube_scores(o.raw_out - o.raw_tgt)
-        return out.cpu().numpy()
+                o = self.net(self.as_float_input(buf[lo: lo + bsz]),
+                             self.flow_rows(of_buf, rows[lo: lo + bsz]))
+                out[0, lo: lo + bsz] = _cube_scores(o.raw_out - o.raw_tgt)
+                if o.of_out is not None:
+                    out[1, lo: lo + bsz] = _cube_scores(o.of_out - o.of_tgt)
+        raw, of = out.cpu().numpy()
+        return raw, of
 
     def score_block(
         self,
@@ -292,10 +346,13 @@ class BlockTrainer(nn.Module):
         of_inputs: Optional[np.ndarray] = None,
         batch_size: Optional[int] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Eval-mode per-cube (raw, of) scores, in input order (of is all
-        zeros: raw-only). uint8 cubes are scaled on the device; float
-        cubes are scored unscaled."""
+        """Eval-mode per-cube (raw, of) scores, in input order. uint8 cubes
+        are scaled on the device; float cubes and flow cubes are scored
+        unscaled. of is all zeros without a flow head; a flow head with
+        of_inputs=None is scored against zero targets (the JAX package's
+        dummy flow)."""
         with full_f32():
             self.load_state(state_or_block)
-            raw = self._score(self.upload(raw_inputs), batch_size)
-        return raw, np.zeros_like(raw)
+            return self._score(self.upload(raw_inputs),
+                               self.upload_flow(of_inputs, raw_inputs.shape),
+                               batch_size)
