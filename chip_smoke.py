@@ -1,7 +1,8 @@
 """Smoke run of vec_vad_torch on one NVIDIA GPU: builds the hand-written
 CUDA kernels, holds each against its plain PyTorch version, serves the
-live-flow two-stream slice end to end at full width, and trains FlowNetC
-(and takes a FlowNet2 fine-tuning step) at FlyingChairs' 384x512.
+live-flow two-stream slice end to end at full width, trains FlowNetC
+(and takes a FlowNet2 fine-tuning step) at FlyingChairs' 384x512, and
+runs calc-flow, train and test at full width, at dataset scale too.
 
     python3 chip_smoke.py
 
@@ -77,8 +78,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   7. two-stream: the paper's pipeline, calc-flow -> `train` -> `test`,
      with the 5raw1of model (nf=32, context_of_num 0, useFlow, patch 32,
      batch 128, 10 epochs, lambda and w 1) over a seeded synthetic tree of
-     uint8 .npy frames at avenue's 360x640 (Train and Test 6 videos of 160
-     frames each) with the generator's boxes as the fixtures.
+     uint8 .npy frames at avenue's 360x640 in avenue's layout (Train and
+     Test 6 videos of 160 frames each) with the generator's boxes as the
+     fixtures and avenue's .mat pixel GT of its anomalous squares.
      `runner.run_calc_flow` (f32, random-init FlowNet2), `run_train`,
      then `load_split`, extraction, `score_cubes`, `frame_level_scores`
      and `evaluate_frame_scores` with and without per-video
@@ -95,6 +97,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      ms per step, cubes/s, frames/s both ways, peak device memory and
      torch.profiler tables of training steps, a resident call and the
      raw and flow UNet chains alone.
+  8. dataset-scale: on phase 7's tree and flow tree (no calc-flow again),
+     `run_train` in bf16 with `resident=True` (under a base of its own:
+     the model path is the same for both dtypes), `run_test(resident=True,
+     pixel_criterion=True)` on phase 7's f32 model, and the whole-split
+     scorers. Checks f32 master parameters and Adam moments, finite
+     falling losses, the bf16 raw training scores against phase 7's f32
+     ones (correlation > 0.98, mean ratio within 0.15), the resident
+     cubes on the card and equal to phase 7's cached cubes (raw bit for
+     bit, flow 1e-6 of its largest, metadata), the resident test's frame
+     scores against phase 7's (2e-4) and a finite pixel AUROC, the device
+     splat and pixel reduction equal to the host's (timed at the split's
+     960 frames and tiled 4x, past the JAX package's routing thresholds),
+     the segmented (64-frame segments) scorer and infer_frame_scores on
+     one segment and budget-routed against the resident one (2e-4), and
+     bf16 scoring's AUROC within 0.02 of f32's;
+     prints ms per bf16 step beside phase 7's f32 step, run_train's wall
+     and extraction, frames/s and peak device memory of every scorer, and
+     a torch.profiler table of 5 bf16 steps with the transposes' share.
 
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
@@ -115,12 +135,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vec_vad_torch import config, kernels, pipeline, runner
+from vec_vad_torch import config, infer, kernels, pipeline, runner
 from vec_vad_torch.cli import make_flow_net
 from vec_vad_torch.config import CompletionConfig, ForegroundConfig, PipelineConfig
 from vec_vad_torch.data import readers
 from vec_vad_torch.data.synthetic import make_synthetic_dataset
 from vec_vad_torch.data.video_index import VideoIndex
+from vec_vad_torch.eval import metrics
 from vec_vad_torch.flow import driver
 from vec_vad_torch.flow.harness import FlowHarness
 from vec_vad_torch.flow.trainer import FlowTrainer
@@ -172,10 +193,28 @@ TS_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_two_stream"
 TS_HW = (360, 640)
 TS_LENGTHS = {"Train": (160,) * 6, "Test": (160,) * 6}
 TS_CFG = PipelineConfig(
-    dataset_name="avenue_npy", fore=ForegroundConfig(patch_size=32),
+    dataset_name="avenue", fore=ForegroundConfig(patch_size=32),
     model=CompletionConfig(nf=32, context_frame_num=4, context_of_num=0,
                            use_flow=True, border_mode="predict"),
 )
+# dataset scale (phase 8): phase 7's workspace and flow tree; the bf16
+# model under a base of its own (symlinks to phase 7's trees), since the
+# model's path is the same for either dtype
+DS_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_dataset_scale"
+DS_SEGMENT = 64  # frames a segment: boundaries fall inside the 160-frame videos
+# infer_frame_scores' budget for its routed run: phase 7's test split is
+# 2.43 GB of frames and flow (2.53 MB a frame), so 5e8 B routes it to
+# segments of 5e8 / (2 x 2.53 MB) = 98 frames, rounded down to 96
+DS_BUDGET, DS_ROUTED_SEGMENT = 5e8, 96
+# the pixel criterion's routes are also timed on the test split tiled this
+# many times: 3,840 frames, past the JAX package's thresholds for its
+# device routes (8,192 cubes; 2^29 pixels, here 8.8e8)
+DS_PIXEL_TILE = 4
+# bf16 against f32 training: the JAX package's own bf16 bounds
+# (tests/test_bf16_training.py:39-41)
+BF16_CORR, BF16_MEAN_RATIO = 0.98, 0.15
+# bf16 scoring's AUROC against f32's
+BF16_AUROC_TOL = 0.02
 # resident vs offline frame scores (PARITY.md:26): the same cubes and
 # weights, the ensemble run at batches of 2048 against 128
 RESIDENT_TOL = 2e-4
@@ -870,14 +909,28 @@ def calc_flow_phase() -> dict:
     return dict(launches=k1, fwd_err=hook_err)
 
 
+def anomaly_masks(frame_hw, boxes, labels) -> np.ndarray:
+    """(N, H, W) uint8 pixel GT of generator frames: 1 inside the anomalous
+    square of each anomalous frame (the generator's last box there)."""
+    masks = np.zeros((len(boxes),) + tuple(frame_hw), np.uint8)
+    for t in np.nonzero(labels)[0]:
+        x0, y0, x1, y1 = np.round(boxes[t][-1]).astype(int)
+        masks[t, y0:y1, x0:x1] = 1
+    return masks
+
+
 def write_train_test_tree(root: Path, seed: int, lengths=None, frame_hw=None,
-                          masks: bool = False):
+                          masks: bool = False, avenue: bool = False):
     """`lengths`' videos (default TT_LENGTHS) from the synthetic generator
     (moving squares at `frame_hw`, default FRAME_HW; anomalous squares in
-    every other test video) as uint8 .npy frames in the UCSD layout, with
-    the generator's boxes as the bboxes_{train,test}_obj_det_with_motion.npy
-    fixtures; `masks` also writes the test split's .bmp label masks (needs
-    cv2). Returns the test split's frame labels."""
+    every other test video) as uint8 .npy frames, with the generator's
+    boxes as the bboxes_{train,test}_obj_det_with_motion.npy fixtures. The
+    UCSD layout (Train/TrainNNN, Test/TestNNN), where `masks` also writes
+    the test split's full-frame .bmp label masks (needs cv2); or with
+    `avenue` avenue's layout (training/frames/NN, testing/frames/NN) and
+    its pixel GT, ground_truth_demo/testing_label_mask/<v>_label.mat with
+    `volLabel` (scipy; the anomalous squares, anomaly_masks). Returns the
+    test split's frame labels."""
     lengths = lengths or TT_LENGTHS
     tr, te = lengths["Train"], lengths["Test"]
     fpv = max(tr + te)
@@ -890,13 +943,24 @@ def write_train_test_tree(root: Path, seed: int, lengths=None, frame_hw=None,
                                           ("Test", te, ds.test_frames, ds.test_boxes)):
         kept = []
         for v, n in enumerate(lengths):
-            d = root / split / f"{split}{v + 1:03d}"
+            d = (root / f"{split.lower()}ing" / "frames" / f"{v + 1:02d}" if avenue
+                 else root / split / f"{split}{v + 1:03d}")
             d.mkdir(parents=True)
             for t in range(n):
                 np.save(d / f"{t:03d}.npy", frames[v * fpv + t])
                 kept.append(boxes[v * fpv + t])
             if split == "Test":
                 labels.append(ds.test_labels[v * fpv: v * fpv + n])
+            if split == "Test" and avenue:
+                import scipy.io
+
+                gt = root / "ground_truth_demo" / "testing_label_mask"
+                gt.mkdir(parents=True, exist_ok=True)
+                vol = np.empty((1, n), dtype=object)
+                vol[0, :] = list(anomaly_masks(frame_hw, boxes[v * fpv: v * fpv + n],
+                                               labels[-1]))
+                scipy.io.savemat(gt / f"{v + 1}_label.mat", {"volLabel": vol},
+                                 do_compression=True)
             if split == "Test" and masks:
                 import cv2
 
@@ -972,7 +1036,7 @@ def card_cpu_and_steps(label, cfg, base, block, test_cubes, run_step_ms):
     against CPU (LOSS_REL_TOL); then TT_STEADY synchronised steps on the
     card and a profile of 5. `run_step_ms`: run_train's steps' average
     (scoring and saving included), printed beside. Returns the card's
-    trainer."""
+    trainer and its step times (ms)."""
     mc, dev = cfg.model, runner.resolve_device("cuda")
     cubes = runner._extract_cached(cfg, base, "train",
                                    runner.load_split(cfg, base, "train"),
@@ -981,17 +1045,15 @@ def card_cpu_and_steps(label, cfg, base, block, test_cubes, run_step_ms):
     cpu_t = BlockTrainer(mc, cfg.fore.patch_size, device="cpu")
     idx, w = card_t._epoch_schedule(cubes.size, np.random.default_rng(SEED))
 
-    def batch(t, buf, of_buf, s):  # step s's (x, x_of, w) on t's device
-        ii = torch.as_tensor(idx[s % idx.shape[0]], device=t.device)
-        return (t.as_float_input(buf.index_select(0, ii)), t.flow_rows(of_buf, ii),
-                torch.as_tensor(w[s % idx.shape[0]], device=t.device))
-
     losses = []
-    for t in (card_t, cpu_t):
+    for t in (card_t, cpu_t):  # the first scheduled batch on t's device
+        ii = torch.as_tensor(idx[0], device=t.device)
+        buf, of_buf = t.upload(cubes.raw), t.upload_flow(cubes.flow, cubes.raw.shape)
         t.start_fit(t.init_state(SEED))
         with torch.no_grad():
-            losses.append([float(v) for v in t.loss(*batch(
-                t, t.upload(cubes.raw), t.upload_flow(cubes.flow, cubes.raw.shape), 0))])
+            losses.append([float(v) for v in t.loss(
+                t.as_float_input(buf.index_select(0, ii)), t.flow_rows(of_buf, ii),
+                torch.as_tensor(w[0], device=t.device))])
     rel = abs(losses[0][0] - losses[1][0]) / abs(losses[1][0])
     print(f"{label}: first step's loss (total, raw, flow) card={losses[0]} "
           f"cpu={losses[1]}, total rel diff={rel:.3e} (bound {LOSS_REL_TOL})")
@@ -1008,21 +1070,40 @@ def card_cpu_and_steps(label, cfg, base, block, test_cubes, run_step_ms):
     check(max(rels) <= LOSS_REL_TOL, f"card vs CPU block scores {rels}")
     del cpu_t
 
-    buf, of_buf = card_t.upload(cubes.raw), card_t.upload_flow(cubes.flow, cubes.raw.shape)
-    card_t.start_fit(card_t.init_state(SEED))
+    step_ms, _ = steady_steps(label, card_t, cubes, run_step_ms)
+    return card_t, step_ms
+
+
+def steady_steps(label, trainer, cubes, run_step_ms):
+    """TT_STEADY synchronised training steps of `trainer` from
+    init_state(SEED) over `cubes`' first scheduled batches (the first
+    step is left out of the statistics), then a profile of 5. Returns
+    the step times (ms) and the profile."""
+    idx, w = trainer._epoch_schedule(cubes.size, np.random.default_rng(SEED))
+    buf = trainer.upload(cubes.raw)
+    of_buf = trainer.upload_flow(cubes.flow, cubes.raw.shape)
+
+    def batch(s):
+        ii = torch.as_tensor(idx[s % idx.shape[0]], device=trainer.device)
+        return (trainer.as_float_input(buf.index_select(0, ii)),
+                trainer.flow_rows(of_buf, ii),
+                torch.as_tensor(w[s % idx.shape[0]], device=trainer.device))
+
+    trainer.start_fit(trainer.init_state(SEED))
     step_ms = []
     for s in range(TT_STEADY):
-        args = batch(card_t, buf, of_buf, s)
-        step_ms.append(timed(lambda: card_t.train_step(*args))[1] * 1e3)
+        args = batch(s)
+        step_ms.append(timed(lambda: trainer.train_step(*args))[1] * 1e3)
+    bsz = trainer.cfg.batch_size
     med = float(np.median(step_ms[1:]))
-    print(f"{label}: ms per training step (batch {mc.batch_size}, synchronised, "
-          f"steps 2-{TT_STEADY}) {step_stats(step_ms[1:])}; {mc.batch_size * 1e3 / med:.1f} "
-          f"cubes/s at the median; run_train's steps averaged {run_step_ms:.3f} ms "
-          f"with scoring and saving", flush=True)
-    args = batch(card_t, buf, of_buf, 0)
-    profile_calls(f"{label}: 5 training steps",
-                  lambda: [card_t.train_step(*args) for _ in range(5)])
-    return card_t
+    print(f"{label}: ms per training step ({trainer.cfg.compute_dtype}, batch {bsz}, "
+          f"synchronised, steps 2-{TT_STEADY}) {step_stats(step_ms[1:])}; "
+          f"{bsz * 1e3 / med:.1f} cubes/s at the median; run_train's steps averaged "
+          f"{run_step_ms:.3f} ms with scoring and saving", flush=True)
+    args = batch(0)
+    prof = profile_calls(f"{label}: 5 training steps ({trainer.cfg.compute_dtype})",
+                         lambda: [trainer.train_step(*args) for _ in range(5)])
+    return step_ms, prof
 
 
 def train_test_phase() -> None:
@@ -1143,20 +1224,23 @@ def train_test_phase() -> None:
     shutil.rmtree(TT_BASE, ignore_errors=True)
 
 
-def two_stream_phase() -> int:
+def two_stream_phase() -> dict:
     """The two-stream main path on the card: calc-flow, run_train, the
     card-side steps of run_test with and without per-video normalisation,
     and the resident scorer with the flow tree, each checked (module
-    docstring, phase 7). Returns K1's launches in calc-flow."""
+    docstring, phase 7). Leaves its workspace for phase 8 and returns
+    what phase 8 reads (K1's launches in calc-flow among them)."""
     shutil.rmtree(TS_BASE, ignore_errors=True)
     cfg, mc = TS_CFG, TS_CFG.model
-    config.register_dataset(dataclasses.replace(
-        config.DATASETS["avenue"], name=cfg.dataset_name, file_ext=".npy"))
+    # avenue's layout and .mat pixel GT, its frames stored as .npy (the
+    # card's machine has no cv2 to decode .jpg)
+    config.register_dataset(dataclasses.replace(config.DATASETS["avenue"],
+                                                file_ext=".npy"))
     dev = runner.resolve_device("cuda")
     base = str(TS_BASE)
     raw_root = TS_BASE / cfg.raw_dataset_dir / cfg.dataset_name
     t0 = time.perf_counter()
-    labels = write_train_test_tree(raw_root, SEED + 8, TS_LENGTHS, TS_HW)
+    labels = write_train_test_tree(raw_root, SEED + 8, TS_LENGTHS, TS_HW, avenue=True)
     n_by_split = [sum(TS_LENGTHS[s]) for s in ("Train", "Test")]
     print(f"two-stream: wrote {n_by_split[0]} train and {n_by_split[1]} test frames "
           f"at {TS_HW} in {time.perf_counter() - t0:.1f} s (set-up)", flush=True)
@@ -1320,8 +1404,8 @@ def two_stream_phase() -> int:
           "the reloaded model scores differently")
     check(not launches, f"K1/K2 launched in train or test: {launches}")
 
-    card_t = card_cpu_and_steps("two-stream", cfg, base, block, test_cubes,
-                                (wall - extract_s[0]) * 1e3 / steps)
+    card_t, step_ms = card_cpu_and_steps("two-stream", cfg, base, block, test_cubes,
+                                         (wall - extract_s[0]) * 1e3 / steps)
     profile_calls("two-stream: one resident scoring call", resident)
     # the raw chain (grouped, 5 members) and the flow chain (one member,
     # ungrouped) alone: 5 train-mode forward + backward passes each
@@ -1341,8 +1425,230 @@ def two_stream_phase() -> int:
         print(f"two-stream: {name} chain: layout transposes (genericTranspose) "
               f"{kernel_us(prof, 'Transpose') / 5e3:.3f} ms a pass of "
               f"{device_busy_us(prof) / 5e3:.3f} ms busy", flush=True)
+    return dict(calc_launches=want, block=block, frame_scores=frame_scores,
+                auroc=aurocs[""], labels=labels, frames=frames_np, flow=flow_np,
+                windows=windows, of_windows=of_windows, boxes_pad=boxes_pad,
+                valid=valid, net=net, step_ms=step_ms, train_extract_s=extract_s[0])
+
+
+def dataset_scale_phase(ts: dict) -> None:
+    """The main path at dataset scale on phase 7's workspace and flow tree
+    (module docstring, phase 8): bf16 resident training, the resident
+    extraction against the cube cache's, the resident test with the
+    pixel criterion, the segmented scorer and infer_frame_scores' routes
+    against the resident one, and bf16 scoring. `ts`: what phase 7 returned."""
+    cfg, dev, base = TS_CFG, runner.resolve_device("cuda"), str(TS_BASE)
+    bf16_cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+    f32_block = ts["block"]
+    shutil.rmtree(DS_BASE, ignore_errors=True)
+    DS_BASE.mkdir(parents=True)
+    for d in (cfg.raw_dataset_dir, cfg.optical_flow_dir):
+        (DS_BASE / d).symlink_to(TS_BASE / d, target_is_directory=True)
+
+    # 1. bf16 resident training: the extraction timed and its cube sets
+    # kept, and the trainer run_train makes kept, for the checks below
+    resident_sets, trainers, read_s = [], [], []
+    extract, make, whole = (runner.extract_cube_set_resident, runner.make_trainer,
+                            pipeline._whole_stack)
+
+    def timed_extract(*a, **k):
+        pipeline._whole_stack = timed_read
+        try:
+            resident_sets.append(timed(lambda: extract(*a, **k)) + (sum(read_s),))
+        finally:
+            pipeline._whole_stack = whole
+        read_s.clear()
+        return resident_sets[-1][0]
+
+    def timed_read(a):  # the host side: reading a whole frame or flow stack
+        out, dt = timed(lambda: whole(a))
+        read_s.append(dt)
+        return out
+
+    def kept_trainer(*a, **k):
+        trainers.append(make(*a, **k))
+        return trainers[-1]
+
+    runner.extract_cube_set_resident, runner.make_trainer = timed_extract, kept_trainer
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    try:
+        (model, path), wall = timed(lambda: runner.run_train(
+            bf16_cfg, str(DS_BASE), seed=SEED, resident=True, device=dev))
+    finally:
+        runner.extract_cube_set_resident, runner.make_trainer = extract, make
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.launch_counts)
+    check(sorted(model.blocks) == [(0, 0, 0)], f"trained blocks {sorted(model.blocks)}")
+    block, trainer = model.blocks[(0, 0, 0)], trainers[0]
+    train_cubes, train_extract_s, train_read_s = resident_sets[0]
+    check(train_cubes.raw.is_cuda and train_cubes.flow.is_cuda,
+          "the resident train cubes left the card")
+    moments = [t for st in trainer.opt.state.values() for k, t in st.items() if k != "step"]
+    check(all(p.dtype == torch.float32 for p in trainer.net.parameters())
+          and len(moments) == 2 * len(list(trainer.net.parameters()))
+          and all(t.dtype == torch.float32 for t in moments)
+          and all(v.dtype == torch.float32 for v in block.state_dict.values()),
+          "bf16 training left the master parameters or Adam's moments outside f32")
+    steps = block.losses.size
+    per_epoch = -(-block.raw_scores.size // bf16_cfg.model.batch_size)
+    first, last = block.losses[:per_epoch].mean(), block.losses[-per_epoch:].mean()
+    a, b = f32_block.raw_scores, block.raw_scores
+    corr, ratio = float(np.corrcoef(a, b)[0, 1]), float(b.mean() / a.mean())
+    print(f"dataset-scale: run_train bf16 --resident {b.size} train cubes, {steps} steps, "
+          f"{wall:.2f} s wall (resident extraction {train_extract_s:.2f} s, of which "
+          f"reading the frame and flow stacks {train_read_s:.2f} s, against phase 7's "
+          f"cube-cache extraction {ts['train_extract_s']:.2f} s; model save included); mean loss "
+          f"epoch 1 {first:.6f}, epoch {bf16_cfg.model.epochs} {last:.6f}; raw training "
+          f"scores against phase 7's f32 model: correlation {corr:.6f} (bound > "
+          f"{BF16_CORR}), mean ratio {ratio:.6f} (bound 1 +- {BF16_MEAN_RATIO}); peak "
+          f"device memory {peak / 2**20:.1f} MiB; launches {launches}", flush=True)
+    check(steps > 0 and np.isfinite(block.losses).all() and last < first,
+          f"bf16 losses: finite {np.isfinite(block.losses).all()}, {first} -> {last}")
+    check(corr > BF16_CORR and abs(ratio - 1.0) < BF16_MEAN_RATIO,
+          f"bf16 against f32 training scores: corr {corr}, mean ratio {ratio}")
+    check(not launches, f"K1/K2 launched in bf16 training: {launches}")
+    step_ms, prof = steady_steps("dataset-scale", trainer, train_cubes,
+                                 (wall - train_extract_s) * 1e3 / steps)
+    busy = max(device_busy_us(prof), 1.0)
+    transposes = kernel_us(prof, "Transpose")
+    # cuDNN's bf16 kernels convert layouts with these instead
+    conversions = kernel_us(prof, "nchwToNhwc") + kernel_us(prof, "nhwcToNchw")
+    f32_med, bf16_med = float(np.median(ts["step_ms"][1:])), float(np.median(step_ms[1:]))
+    print(f"dataset-scale: bf16 step median {bf16_med:.3f} ms against phase 7's f32 "
+          f"{f32_med:.3f} ms ({f32_med / bf16_med:.2f}x); device busy {busy / 5e3:.3f} ms a "
+          f"step; layout transposes (genericTranspose) {transposes / 5e3:.3f} ms a step "
+          f"({100 * transposes / busy:.1f} % of the busy time), NCHW<->NHWC conversions "
+          f"{conversions / 5e3:.3f} ms a step ({100 * conversions / busy:.1f} %)", flush=True)
+    del trainer, trainers
+
+    # 3. the resident test with the pixel criterion, on phase 7's f32 model
+    f32_model = VadModel(cfg=cfg, blocks={(0, 0, 0): f32_block})
+    runner.extract_cube_set_resident = timed_extract
+    kernels.reset_launch_counts()
+    try:
+        res, wall = timed(lambda: runner.run_test(cfg, base, model=f32_model, resident=True,
+                                                  pixel_criterion=True, device=dev))
+    finally:
+        runner.extract_cube_set_resident = extract
+    test_cubes, test_extract_s, test_read_s = resident_sets[1]
+    diff = np.abs(res["frame_scores"] - ts["frame_scores"])
+    print(f"dataset-scale: run_test --resident --pixel-criterion {wall:.2f} s wall "
+          f"(resident extraction {test_extract_s:.2f} s, of which reading the stacks "
+          f"{test_read_s:.2f} s); frame scores against phase 7's "
+          f"max |diff| {diff.max():.3e} (bound rtol=atol={RESIDENT_TOL}); AUROC "
+          f"{res['auroc']:.6f} (phase 7: {ts['auroc']:.6f}), pixel AUROC "
+          f"{res['pixel_auroc']:.6f}", flush=True)
+    check(np.allclose(res["frame_scores"], ts["frame_scores"], rtol=RESIDENT_TOL,
+                      atol=RESIDENT_TOL), f"resident test frame scores, max |diff| {diff.max()}")
+    check(np.isfinite(res["pixel_auroc"]), f"pixel AUROC {res['pixel_auroc']}")
+    check(not kernels.launch_counts, f"K1/K2 launched in test: {kernels.launch_counts}")
+    # the pixel criterion's card routes against its host routes, exact, at
+    # the split's size and tiled DS_PIXEL_TILE times
+    data = runner.load_split(cfg, base, "test")
+    n = data.index.total_frames
+    cube_scores = pipeline.score_cubes(f32_model, test_cubes, device=dev)
+    gt = readers.load_pixel_masks(cfg.dataset_name, str(TS_BASE / cfg.raw_dataset_dir
+                                                         / cfg.dataset_name), data.index)
+    for reps in (1, DS_PIXEL_TILE):
+        sc, boxes = np.tile(cube_scores, reps), np.tile(test_cubes.boxes, (reps, 1))
+        fids = np.concatenate([test_cubes.frame_ids + r * n for r in range(reps)])
+        gt_r = np.tile(gt, (reps, 1, 1))
+        host_masks, host_s = timed(lambda: score_mod.splat_score_masks(
+            sc, boxes, fids, reps * n, TS_HW))
+        card_masks, card_s = timed(lambda: score_mod.splat_score_masks_device(
+            sc, boxes, fids, reps * n, TS_HW, device=dev))
+        (host_sc, _), host_px_s = timed(lambda: metrics.pixel_level_scalars(
+            host_masks, gt_r, on_device=False))
+        (card_sc, _), card_px_s = timed(lambda: metrics.pixel_level_scalars(
+            host_masks, gt_r, on_device=True, device=dev))
+        print(f"dataset-scale: pixel criterion over {reps * n} masks of {TS_HW} "
+              f"({sc.size} cubes, {host_masks.size} pixels): splat host {host_s:.3f} s, "
+              f"card {card_s:.3f} s; k-th-largest reduction host {host_px_s:.3f} s, card "
+              f"{card_px_s:.3f} s; {int(gt_r.any(axis=(1, 2)).sum())} anomalous frames",
+              flush=True)
+        check(np.array_equal(card_masks, host_masks), "device splat differs from the host's")
+        check(np.array_equal(card_sc, host_sc), "device pixel scalars differ from the host's")
+        del host_masks, card_masks, gt_r
+    del gt
+
+    # 2. the resident extraction against the cube cache's (phase 7 wrote it)
+    for split, (cubes, _, _) in zip(("train", "test"), resident_sets):
+        block_mode = getattr(cfg.fore, f"{split}_block_mode")
+        cached = runner._extract_cached(cfg, base, split, runner.load_split(cfg, base, split),
+                                        block_mode, dev)
+        check(cubes.raw.is_cuda and cubes.flow.is_cuda, f"{split} cubes left the card")
+        raw_same = np.array_equal(cubes.raw.cpu().numpy(), cached.raw)
+        flow_err = float(np.abs(cubes.flow.cpu().numpy() - cached.flow).max()
+                         / np.abs(cached.flow).max())
+        meta_same = all(np.array_equal(getattr(cubes, k), getattr(cached, k))
+                        for k in ("frame_ids", "boxes", "cells", "scenes"))
+        print(f"dataset-scale: {split} resident cubes ({cubes.size}, on the card) against "
+              f"the cached extraction: raw bit for bit {raw_same}, flow max |diff| / max "
+              f"|flow| {flow_err:.3e} (bound 1e-6), metadata equal {meta_same}", flush=True)
+        check(raw_same and flow_err <= 1e-6 and meta_same,
+              f"{split} resident extraction differs from the cached one")
+    del resident_sets, train_cubes, test_cubes
+
+    # 4. the segmented scorer and infer_frame_scores' two routes against the
+    # resident one
+    stats = f32_block.raw_stats + f32_block.of_stats
+    kw = dict(flow=ts["flow"], of_windows=ts["of_windows"], net=ts["net"], device=dev)
+    args = (cfg, f32_block.state_dict, stats, ts["frames"], ts["windows"], ts["boxes_pad"],
+            ts["valid"])
+    routed = []
+    segmented = infer.infer_frame_scores_segmented
+
+    def counted_segmented(*a, **k):
+        routed.append(k["segment_frames"])
+        return segmented(*a, **k)
+
+    forms = [
+        ("resident", lambda: infer.infer_frame_scores_resident(*args, **kw)),
+        (f"segmented ({DS_SEGMENT} frames a segment)",
+         lambda: segmented(*args, segment_frames=DS_SEGMENT, **kw)),
+        ("infer_frame_scores on one segment", lambda: infer.infer_frame_scores(*args, **kw)),
+        (f"routed (budget {DS_BUDGET:.0e} B)", lambda: infer.infer_frame_scores(
+            *args, device_memory_budget_bytes=DS_BUDGET, **kw)),
+        ("resident bf16", lambda: infer.infer_frame_scores_resident(
+            *args, compute_dtype=torch.bfloat16, **kw)),
+    ]
+    n_frames = ts["frames"].shape[0]
+    out = {}
+    infer.infer_frame_scores_segmented = counted_segmented
+    try:
+        for name, fn in forms:
+            fn()  # warm
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out[name], sec = timed(fn)
+            above = (torch.cuda.max_memory_allocated() - before) / 2**20
+            ref = out["resident"]
+            print(f"dataset-scale: {name} scoring {n_frames} frames in {sec:.3f} s "
+                  f"({n_frames / sec:.1f} frames/s, upload and extraction included); "
+                  f"peak device memory {above:.1f} MiB above the {before / 2**20:.1f} MiB "
+                  f"held before the call; against resident max |diff| "
+                  f"{np.abs(out[name] - ref).max():.3e}", flush=True)
+    finally:
+        infer.infer_frame_scores_segmented = segmented
+    for name, _ in forms[1:4]:
+        check(np.allclose(out[name], out["resident"], rtol=RESIDENT_TOL, atol=RESIDENT_TOL),
+              f"{name} against resident frame scores")
+    check(routed == [n_frames] * 2 + [DS_ROUTED_SEGMENT] * 2,
+          f"infer_frame_scores did not route to one segment, then to "
+          f"{DS_ROUTED_SEGMENT}-frame segments: {routed}")
+
+    # 5. bf16 resident scoring: the AUROC against f32's
+    auc = {k: metrics.roc_auc_score(out[k], ts["labels"]) for k in ("resident",
+                                                                   "resident bf16")}
+    print(f"dataset-scale: AUROC of resident scores f32 {auc['resident']:.6f}, bf16 "
+          f"{auc['resident bf16']:.6f} (bound {BF16_AUROC_TOL})", flush=True)
+    check(np.isfinite(out["resident bf16"]).all()
+          and abs(auc["resident bf16"] - auc["resident"]) <= BF16_AUROC_TOL,
+          f"bf16 scoring AUROC {auc}")
+    shutil.rmtree(DS_BASE, ignore_errors=True)
     shutil.rmtree(TS_BASE, ignore_errors=True)
-    return want
 
 
 def main() -> int:
@@ -1470,8 +1776,14 @@ def main() -> int:
     t_phase = phase_done("train-test", t_phase)
 
     # -- two-stream phase: calc-flow -> 5raw1of train -> test ---------------
-    ts_launches = two_stream_phase()
-    phase_done("two-stream", t_phase)
+    ts = two_stream_phase()
+    ts_launches = ts["calc_launches"]
+    t_phase = phase_done("two-stream", t_phase)
+
+    # -- dataset-scale phase: bf16, resident, segmented, pixel criterion -----
+    dataset_scale_phase(ts)
+    del ts
+    phase_done("dataset-scale", t_phase)
 
     rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"],
                                calc["fwd_err"]))

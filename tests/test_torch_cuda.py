@@ -229,3 +229,119 @@ def test_two_stream_fit_block_on_card_matches_cpu(cuda):
     for k in ("raw_scores", "of_scores"):
         np.testing.assert_allclose(getattr(blocks[0], k), getattr(blocks[1], k),
                                    rtol=1e-4)
+
+
+def _split(seed=5):
+    """A tiny seeded test split (2 videos of 19 frames at 48x64) with its
+    index, padded boxes and smooth flow maps."""
+    from vec_vad_torch.data.synthetic import make_synthetic_dataset
+    from vec_vad_torch.data.video_index import VideoIndex
+
+    ds = make_synthetic_dataset(frames_per_video=19, n_train_videos=1, n_test_videos=2,
+                                frame_h=48, frame_w=64, seed=seed)
+    d = ds.test_frames[1:].astype(np.float32) - ds.test_frames[:-1].astype(np.float32)
+    flow = np.zeros(ds.test_frames.shape[:3] + (2,), np.float32)
+    flow[1:, ..., 0] = d.mean(-1) / 8.0
+    return ds, VideoIndex(["a", "b"], ds.test_video_lengths), flow
+
+
+def _two_stream_cfg(**model):
+    import dataclasses
+
+    from vec_vad_torch.config import CompletionConfig, ForegroundConfig, PipelineConfig
+
+    cfg = PipelineConfig(dataset_name="UCSDped2",
+                         fore=ForegroundConfig(patch_size=16, max_boxes_per_frame=8),
+                         model=CompletionConfig(nf=4, epochs=1, batch_size=16,
+                                                context_of_num=0, use_flow=True, **model))
+    spec = dataclasses.replace(cfg.dataset, frame_h=48, frame_w=64)
+    return cfg, spec
+
+
+@pytest.mark.cuda
+def test_resident_cube_set_stays_on_the_card(cuda, monkeypatch):
+    """extract_cube_set_resident's cubes go through train_model and
+    score_cubes with no device-to-host copy of a raw or flow cube: every
+    way a tensor leaves the card is watched for the call."""
+    from vec_vad_torch import pipeline
+
+    ds, idx, flow = _split()
+    cfg, spec = _two_stream_cfg()
+    cubes = pipeline.extract_cube_set_resident(cfg, spec, idx, ds.test_frames,
+                                               ds.test_boxes, flow_frames=flow,
+                                               device=cuda)
+    assert cubes.raw.is_cuda and cubes.flow.is_cuda and cubes.raw.dtype == torch.uint8
+    cube_shapes = {tuple(cubes.raw.shape[1:]), tuple(cubes.flow.shape[1:])}
+    left = []
+
+    def watch(name):
+        orig = getattr(torch.Tensor, name)
+
+        def wrapped(self, *a, **k):
+            dest = k.get("device", a[0] if a else None)
+            to_host = name != "to" or (isinstance(dest, (str, torch.device))
+                                       and torch.device(dest).type != self.device.type)
+            if self.is_cuda and to_host and tuple(self.shape[-3:]) in cube_shapes:
+                left.append((name, tuple(self.shape)))
+            return orig(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, wrapped)
+
+    for name in ("cpu", "to", "numpy", "tolist", "__array__"):
+        watch(name)
+    model = pipeline.train_model(cfg, cubes, seed=0, device=cuda)
+    scores = pipeline.score_cubes(model, cubes, device=cuda)
+    monkeypatch.undo()
+    assert not left, left
+    assert scores.shape == (cubes.size,) and np.isfinite(scores).all()
+
+
+@pytest.mark.cuda
+def test_bf16_training_step_on_card(cuda):
+    """A bf16 BlockTrainer on the card: f32 master parameters and Adam
+    moments after its steps, finite losses, and its training scores
+    tracking the same bf16 fit on the CPU (the JAX package's bf16 bounds:
+    correlation > 0.98, mean within 15 %)."""
+    from vec_vad_torch.train.trainer import BlockTrainer
+
+    cfg, _ = _two_stream_cfg(compute_dtype="bfloat16")
+    rng = np.random.default_rng(6)
+    raw = rng.integers(0, 256, (40, 16, 16, 15), dtype=np.uint8)
+    of = rng.normal(0.0, 2.0, (40, 16, 16, 2)).astype(np.float32)
+    card = BlockTrainer(cfg.model, 16, device=cuda)
+    blocks = [t.fit_block(raw, of, seed=2)
+              for t in (card, BlockTrainer(cfg.model, 16, device="cpu"))]
+    assert np.isfinite(blocks[0].losses).all()
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in card.net.parameters())
+    assert all(t.dtype == torch.float32 for s in card.opt.state.values()
+               for k, t in s.items() if k != "step")
+    a, b = blocks[1].raw_scores, blocks[0].raw_scores
+    assert np.corrcoef(a, b)[0, 1] > 0.98 and abs(b.mean() / a.mean() - 1.0) < 0.15
+
+
+@pytest.mark.cuda
+def test_segmented_scoring_equals_resident_on_card(cuda):
+    """infer_frame_scores_segmented (16-frame segments, boundaries inside
+    videos) and infer_frame_scores, on one segment and routed by a 1-byte
+    budget to 32-frame segments, against the resident scorer on the
+    card, with flow: within 2e-4."""
+    from vec_vad_torch import infer
+    from vec_vad_torch.models.completion import init_completion_state, make_completion_net
+    from vec_vad_torch.ops.stc import pad_boxes
+
+    ds, idx, flow = _split()
+    cfg, _ = _two_stream_cfg()
+    state = init_completion_state(make_completion_net(cfg.model, "cpu"), seed=4)
+    boxes_pad, valid = pad_boxes(ds.test_boxes, 8)
+    kw = dict(windows=idx.context_indices(4, "predict"), boxes_pad=boxes_pad, valid=valid,
+              flow=flow, of_windows=idx.context_indices(0, "predict"), device=cuda)
+    stats = (100.0, 10.0, 5.0, 2.0)
+    want = infer.infer_frame_scores_resident(cfg, state, stats, ds.test_frames, **kw)
+    seg = infer.infer_frame_scores_segmented(cfg, state, stats, ds.test_frames,
+                                             segment_frames=16, **kw)
+    whole = infer.infer_frame_scores(cfg, state, stats, ds.test_frames, **kw)
+    routed = infer.infer_frame_scores(cfg, state, stats, ds.test_frames,
+                                      device_memory_budget_bytes=1.0, **kw)
+    assert np.isfinite(want).all() and (want > -1e5).any()
+    for got in (seg, whole, routed):
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

@@ -190,7 +190,7 @@ def test_host_copies_match_jax_package():
                        "splat_score_masks"]),
     ("eval.metrics", ["_binary_curve", "roc_curve", "precision_recall_curve", "auc",
                       "roc_auc_score", "EvalResult", "evaluate_scores",
-                      "save_roc_pr_curve_data"]),
+                      "save_roc_pr_curve_data", "_PIXEL_DEVICE_CHUNK"]),
     ("ops.stc", ["pad_boxes"]),
     ("fore.detector", ["PrecomputedDetector"]),
     ("runtime.artifacts", ["_flatten", "_unflatten", "save_pytree_npz",

@@ -17,9 +17,11 @@ import jax
 import jax.numpy as jnp
 from vec_vad_torch import cli as t_cli
 from vec_vad_torch import config as t_config
+from vec_vad_torch import infer as t_infer
 from vec_vad_torch import pipeline as t_pipe
 from vec_vad_torch import runner as t_runner
 from vec_vad_torch.eval import metrics as t_metrics
+from vec_vad_torch.data.video_index import VideoIndex
 from vec_vad_torch.fore.detector import PrecomputedDetector as TDetector
 from vec_vad_torch.infer import infer_frame_scores_resident as t_resident
 from vec_vad_torch.models.convert import completion_from_jax, completion_to_jax
@@ -665,6 +667,17 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
                            np.zeros((1, 8), bool)),
         lambda: BlockTrainer(tcfg.model, P),
         lambda: t_cli.main(["train", "--base", str(tmp_path)]),
+        lambda: t_pipe.extract_cube_set_resident(
+            tcfg, tcfg.dataset, VideoIndex(["a"], np.array([1])),
+            np.zeros((1, 8, 8, 3), np.uint8), [np.zeros((1, 4), np.float32)]),
+        lambda: t_infer.infer_frame_scores_segmented(
+            tcfg, {}, (0, 1, 0, 1), np.zeros((1, 8, 8, 3), np.uint8),
+            np.zeros((1, 5), np.int64), np.zeros((1, 8, 4), np.float32),
+            np.zeros((1, 8), bool)),
+        lambda: t_infer.infer_frame_scores(
+            tcfg, {}, (0, 1, 0, 1), np.zeros((1, 8, 8, 3), np.uint8),
+            np.zeros((1, 5), np.int64), np.zeros((1, 8, 4), np.float32),
+            np.zeros((1, 8), bool)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -672,28 +685,17 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
 
 
 def test_left_out_routes_refuse_by_name(tmp_path):
-    """What the slice does not port raises and names its ROADMAP item."""
+    """What the port leaves out raises and names its ROADMAP item: the
+    parallel GridTrainer (item 2.8) and computing boxes without a bbox
+    fixture (item 4.1)."""
     jcfg, tcfg = _configs()
-    bf16 = dataclasses.replace(tcfg.model, compute_dtype="bfloat16")
-    bf16_flow = dataclasses.replace(bf16, context_of_num=0, use_flow=True)
     cubes = t_pipe.CubeSet(_cubes(0, 4), None, np.zeros(4, np.int64),
                            np.zeros((4, 4), np.float32), np.zeros((4, 2), np.int64),
                            np.ones(4, np.int64))
-    for call, item in [
-        (lambda: BlockTrainer(bf16, P, device="cpu"), "item 2.7"),
-        (lambda: BlockTrainer(bf16_flow, P, device="cpu"), "item 2.7"),
-        (lambda: t_pipe.train_model(tcfg, cubes, parallel_blocks=True,
-                                    device="cpu"), "item 2.8"),
-        (lambda: t_runner.run_train(tcfg, str(tmp_path), resident=True,
-                                    device="cpu"), "item 2.9"),
-        (lambda: t_runner.run_test(tcfg, str(tmp_path), pixel_criterion=True,
-                                   device="cpu"), "item 2.10"),
-        (lambda: t_runner.load_split(tcfg, str(tmp_path), "train"), None),
-    ]:
-        with pytest.raises((NotImplementedError, FileNotFoundError)) as e:
-            call()
-        if item:
-            assert item in str(e.value)
+    with pytest.raises(NotImplementedError, match="item 2.8"):
+        t_pipe.train_model(tcfg, cubes, parallel_blocks=True, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        t_runner.load_split(tcfg, str(tmp_path), "train")
     _register()
     ws = str(tmp_path / "ws")
     _write_workspace(ws)

@@ -11,9 +11,10 @@ plain PyTorch path).
     python -m vec_vad_torch flow-infer --data-root TREE --workdir WD
 
 With `useFlow = True` in the config and the tree calc-flow wrote, train
-and test run the two-stream model. train and test keep `--resident` and
-test `--pixel-criterion`, which refuse to run (not ported, ROADMAP.md
-Queue 1 items 2.9 and 2.10).
+and test run the two-stream model. `--resident` extracts a split on the
+device (no cube cache) and test's `--pixel-criterion` adds the
+pixel-level AUROC from the dataset's pixel GT (avenue's .mat files; the
+ped layout's .bmp masks need cv2).
 calc-flow has no `--no-mesh`: the JAX package's data-parallel mesh is not
 ported. The other subcommands of vec_vad_tpu are not ported yet
 (ROADMAP.md).
@@ -83,6 +84,8 @@ def cmd_test(args) -> int:
         pixel_criterion=args.pixel_criterion,
         resident=args.resident, device=args.device,
     )
+    if "pixel_auroc" in res:
+        print(f"pixel-level AUROC (coverage 0.4): {res['pixel_auroc']:.4f}")
     if "auroc_per_scene" in res:
         for si, auc in sorted(res["auroc_per_scene"].items()):
             print(f"scene {si} frame-level AUROC: {auc:.4f}")
@@ -307,7 +310,8 @@ def main(argv=None) -> int:
     p.add_argument("--log-every", type=int, default=5)
     p.add_argument(
         "--resident", action="store_true",
-        help="device-resident extraction (not ported: refuses to run)",
+        help="device-resident extraction (cubes never leave the device; "
+        "skips the cube cache)",
     )
     _add_device(p)
     p.set_defaults(fn=cmd_train)
@@ -319,11 +323,12 @@ def main(argv=None) -> int:
     p.add_argument(
         "--pixel-criterion", action="store_true",
         help="also evaluate the pixel-level coverage criterion "
-        "(not ported: refuses to run)",
+        "(needs pixel GT masks)",
     )
     p.add_argument(
         "--resident", action="store_true",
-        help="device-resident test extraction (not ported: refuses to run)",
+        help="device-resident test extraction (cubes stay on the device for "
+        "scoring; skips the cube cache)",
     )
     _add_device(p)
     p.set_defaults(fn=cmd_test)

@@ -29,6 +29,19 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_dtype(dtype) -> torch.dtype:
+    """torch.float32 or torch.bfloat16 for a compute dtype given as either
+    torch dtype or its name ("float32", "bfloat16")."""
+    if isinstance(dtype, torch.dtype) and dtype in _DTYPES.values():
+        return dtype
+    if dtype in _DTYPES:
+        return _DTYPES[dtype]
+    raise ValueError(f"unsupported compute dtype {dtype!r}: float32 or bfloat16")
+
+
 @contextlib.contextmanager
 def full_f32(dtype=torch.float32):
     """For the duration of the block, f32 convolutions and matmuls on the

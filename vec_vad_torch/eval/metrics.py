@@ -1,7 +1,8 @@
 """Frame-level evaluation metrics in pure NumPy: a copy of the NumPy part
 of vec_vad_tpu/eval/metrics.py (tests/test_torch_isolation.py holds the
-functions equal to the originals). The pixel-level criterion
-(`pixel_level_*`) is not ported.
+functions equal to the originals), and the pixel-level criterion
+(`pixel_level_scalars`, `pixel_level_roc`) with its reduction's two
+routes, the host np.partition loop and a torch device route.
 
 Drop-in replacement for the reference's sklearn-based evaluation
 (utils.py:29-65): ROC curve + AUROC, EER (both directions), and PR curves
@@ -17,6 +18,9 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+from vec_vad_torch.device import resolve_device
 
 
 def _binary_curve(
@@ -169,3 +173,117 @@ def save_roc_pr_curve_data(
     if file_path is not None:
         np.savez_compressed(file_path, **res.curves)
     return res.roc_auc
+
+
+# ---------------------------------------------------------------------------
+# Pixel-level criterion (vec_vad_tpu/eval/metrics.py:187-304)
+# ---------------------------------------------------------------------------
+
+# frames per device call: bounds the (chunk, H*W) f32 sort workspace to
+# ~50-200 MB at SHT geometry
+_PIXEL_DEVICE_CHUNK = 32
+
+
+def _pixel_scalars_device(
+    flat: np.ndarray, gt_flat: np.ndarray, coverage: float, device="cuda"
+) -> np.ndarray:
+    """Device twin of the pixel_level_scalars reduction on `device`: one
+    masked descending sort and a clamped per-row gather of the k-th
+    element, a chunk of frames a call.
+
+    Exact against the host np.partition loop: both select an element of
+    the frame. Anomalous frames mask their non-GT pixels to -inf, so the
+    k-th largest of the sorted row is the k-th largest inside the GT
+    region (k <= |GT|, so the gather never reaches the -inf tail); normal
+    frames keep the whole row and take k = 1, the max. k is computed on
+    the HOST in f64, as the host loop computes it: f32 ceil disagrees for
+    some (coverage, |GT|) pairs (0.3 * 50: 15.000000000000002 in f64 ->
+    16, 15.0 in f32 -> 15)."""
+    dev = resolve_device(device)
+    n = flat.shape[0]
+    c = _PIXEL_DEVICE_CHUNK
+    out = np.empty(n, np.float64)
+    for lo in range(0, n, c):
+        s = torch.from_numpy(np.ascontiguousarray(flat[lo: lo + c], np.float32)).to(dev)
+        g_host = gt_flat[lo: lo + c]
+        g = torch.from_numpy(np.ascontiguousarray(g_host)).to(dev)
+        cnt = g_host.sum(axis=-1)
+        k = np.where(cnt > 0, np.ceil(coverage * cnt.astype(np.float64)), 1.0)
+        k = np.clip(k, 1, np.maximum(cnt, 1)).astype(np.int64)
+        lab = g.any(dim=-1, keepdim=True)
+        masked = torch.where(lab & ~g, torch.tensor(-np.inf, device=dev), s)
+        top = torch.sort(masked, dim=-1, descending=True).values
+        ki = torch.as_tensor(k - 1, device=dev).clamp(0, top.shape[-1] - 1)
+        out[lo: lo + c] = top.gather(-1, ki[:, None])[:, 0].cpu().numpy()
+    return out
+
+
+def pixel_level_scalars(
+    score_masks: np.ndarray,
+    gt_masks: np.ndarray,
+    coverage: float = 0.4,
+    on_device: bool = False,
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Reduce per-pixel score masks to per-frame scalars implementing the
+    standard VAD pixel-level criterion (Mahadevan et al., CVPR'10; the
+    reference stubs every non-frame criterion with NotImplementedError,
+    test.py:400-401).
+
+    An anomalous frame counts as detected at threshold t iff the predicted
+    anomalous pixels (score >= t) cover >= `coverage` of its GT anomalous
+    pixels; a normal frame is a false positive iff ANY pixel fires. Both
+    rules are monotone in t, so each frame reduces to one scalar:
+
+      * anomalous frame: the k-th largest score inside the GT region,
+        k = ceil(coverage * |GT|)  (detected iff t <= that value);
+      * normal frame:    the max score over the whole frame.
+
+    The pixel-level ROC is the ordinary score ROC over these scalars.
+    Returns (scalars, labels).
+
+    `on_device` picks the reduction's route (the JAX package's `device`
+    flag; here `device` names the torch device): True runs the chunked
+    sorts on `device` (_pixel_scalars_device, element-exact against the
+    host loop); False, the default, the host np.partition loop, which
+    touches no device. Unlike the JAX package, nothing routes by size:
+    the device route was slower than the host's on the H100 at every size
+    measured, its masks crossing PCIe (PERF.md section 5).
+    """
+    # No dtype conversion: both reductions are order-based selection, and
+    # an up-front float64 copy would double an SHT-scale mask stack
+    score_masks = np.asarray(score_masks)
+    gt = np.asarray(gt_masks) > 0
+    n = score_masks.shape[0]
+    if gt.shape[0] != n:
+        raise ValueError(f"{n} score masks vs {gt.shape[0]} GT masks")
+    labels = gt.reshape(n, -1).any(axis=1).astype(np.int64)
+    flat = score_masks.reshape(n, -1)
+    if on_device:
+        return (
+            _pixel_scalars_device(flat, gt.reshape(n, -1), coverage, device),
+            labels,
+        )
+    scalars = np.empty(n, np.float64)
+    for i in range(n):
+        if labels[i]:
+            region = flat[i][gt[i].reshape(-1)]
+            k = max(int(np.ceil(coverage * region.size)), 1)
+            # k-th largest
+            scalars[i] = np.partition(region, region.size - k)[region.size - k]
+        else:
+            scalars[i] = flat[i].max()
+    return scalars, labels
+
+
+def pixel_level_roc(
+    score_masks: np.ndarray,
+    gt_masks: np.ndarray,
+    coverage: float = 0.4,
+    file_path: Optional[str] = None,
+) -> float:
+    """Pixel-level AUROC under the coverage criterion (see
+    pixel_level_scalars; its host route); persists the ROC/PR curves like
+    save_roc_pr_curve_data when `file_path` is given."""
+    scalars, labels = pixel_level_scalars(score_masks, gt_masks, coverage)
+    return save_roc_pr_curve_data(scalars, labels, file_path, verbose=False)

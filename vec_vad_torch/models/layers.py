@@ -17,6 +17,9 @@ replicates:
     `batch_weight` marks (masked_bn, vec_vad_tpu/models/layers.py:101-148);
   * MaxPool2d(2).
 
+A bf16 input (bf16 training, bf16 scoring) runs BatchNorm with the JAX
+package's bf16 cast points (`BatchNorm._forward_low_precision`).
+
 Parameters are created empty on `device`; weights come from
 models/convert.py or `init_completion_`.
 """
@@ -87,6 +90,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(n, device=dev))
 
     def forward(self, x, train: bool = False, batch_weight=None):
+        if x.dtype != torch.float32:
+            return self._forward_low_precision(x, train, batch_weight)
         if not train or batch_weight is None:
             # torch's own batch norm: batch statistics in train mode, the
             # running ones updated with the unbiased variance
@@ -105,6 +110,40 @@ class BatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.epsilon)
         return ((x - mean[:, None, None]) * (inv * self.weight)[:, None, None]
                 + self.bias[:, None, None])
+
+    def _forward_low_precision(self, x, train: bool, batch_weight):
+        """A bf16 x with the JAX package's cast points
+        (vec_vad_tpu/models/layers.py:125-144): the statistics come out in
+        x's dtype (sums accumulate in f32, as both libraries reduce bf16),
+        the normalisation runs in x's dtype against the weight and bias as
+        given (bf16 copies of the f32 masters while training), and the
+        running statistics stay in their own dtype (f32 while training)."""
+        dims = (0, 2, 3)
+        if not train:
+            mean = self.running_mean.to(x.dtype)
+            var = self.running_var.to(x.dtype)
+        else:
+            if batch_weight is None:
+                n = float(x.numel() // x.shape[1])
+                mean = x.mean(dim=dims)
+                var = (x - mean[:, None, None]).square().mean(dim=dims)
+                var_unbiased = var * (n / max(n - 1.0, 1.0))
+            else:
+                w = batch_weight.to(x.dtype).reshape(-1, 1, 1, 1)
+                n = torch.clamp(batch_weight.float().sum() * (x.shape[2] * x.shape[3]),
+                                min=1.0)
+                n_x = n.to(x.dtype)  # the statistics stay in the compute dtype
+                mean = (x * w).sum(dim=dims) / n_x
+                var = (w * (x - mean[:, None, None]).square()).sum(dim=dims) / n_x
+                # the f32 count promotes the variance (jnp's array promotion)
+                var_unbiased = var.float() * (n / torch.clamp(n - 1.0, min=1.0))
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(m * mean.detach())
+                self.running_var.mul_(1 - m).add_(m * var_unbiased.detach())
+        inv = torch.rsqrt(var + self.epsilon)
+        return ((x - mean[:, None, None]) * inv[:, None, None]
+                * self.weight[:, None, None] + self.bias[:, None, None])
 
 
 class DoubleConv(nn.Module):

@@ -19,15 +19,23 @@ ones and fuse w_raw * z(raw) + w_of * z(of) when scored (test.py:330-345);
 a two-stream block scoring a split without a flow tree scores its flow
 head against zero targets and still fuses, as the JAX package does.
 
+extract_cube_set_resident is the device-resident form of the extraction
+(vec_vad_tpu/pipeline.py:254-431): the frame (and flow) stack goes to the
+device once and the kept cubes stay there, as tensors in the CubeSet that
+train_model and score_cubes read without a host round trip.
+pixel_score_masks splats on the host: unlike the JAX package it does
+not route large splits to the device splat (score.scoring.
+splat_score_masks_device), which was slower than the host's on the H100
+at every size measured (PERF.md section 5).
+
 Not ported (ROADMAP.md Queue 1): the parallel GridTrainer and its
-multi-block auto-selection (item 2.8), extract_cube_set_resident
-(item 2.9) and the device splat of pixel_score_masks (item 2.10).
+multi-block auto-selection (item 2.8).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -87,10 +95,12 @@ class CubeSet:
 
     One row per (cube, routed block cell) pair — a cube routed to multiple
     cells (block_mode > 1) appears once per cell, mirroring the reference's
-    per-cell appends (train.py:183-191)."""
+    per-cell appends (train.py:183-191). raw and flow are numpy arrays,
+    or tensors on the device for a device-resident set
+    (extract_cube_set_resident); the metadata is numpy either way."""
 
-    raw: np.ndarray  # (M, P, P, T*3) uint8
-    flow: Optional[np.ndarray]  # (M, P, P, T_of*2) float32
+    raw: Union[np.ndarray, torch.Tensor]  # (M, P, P, T*3) uint8
+    flow: Optional[Union[np.ndarray, torch.Tensor]]  # (M, P, P, T_of*2) float32
     frame_ids: np.ndarray  # (M,) int64
     boxes: np.ndarray  # (M, 4) float32
     cells: np.ndarray  # (M, 2) int64 (h_cell, w_cell)
@@ -158,15 +168,7 @@ def extract_cube_set(
     assert frames.shape[0] == n
     block_mode = block_mode or fc.train_block_mode
 
-    # pad only to this split's real peak box count (rounded up) — the
-    # configured capacity is an upper bound, not the working shape
-    peak = max((np.asarray(b).reshape(-1, 4).shape[0] for b in boxes_list), default=1)
-    k_eff = min(fc.max_boxes_per_frame, max(-(-peak // 8) * 8, 8))
-    if peak > fc.max_boxes_per_frame:
-        raise ValueError(
-            f"a frame has {peak} boxes > max_boxes_per_frame="
-            f"{fc.max_boxes_per_frame}"
-        )
+    k_eff = _k_eff(fc, boxes_list)
     boxes_pad, valid = pad_boxes(boxes_list, k_eff)
     raw_windows = index.context_indices(mc.context_frame_num, mc.border_mode)
     if raw_windows.ndim == 1:
@@ -247,17 +249,7 @@ def extract_cube_set(
                         scene_rows.append(scene_idx[f])
 
     if not raw_rows:
-        p, t = fc.patch_size, mc.tot_raw_num
-        return CubeSet(
-            raw=np.zeros((0, p, p, t * 3), np.uint8),
-            flow=None if flow_frames is None else np.zeros(
-                (0, p, p, mc.tot_of_num * 2), np.float32
-            ),
-            frame_ids=np.zeros(0, np.int64),
-            boxes=np.zeros((0, 4), np.float32),
-            cells=np.zeros((0, 2), np.int64),
-            scenes=np.zeros(0, np.int64),
-        )
+        return _empty_cube_set(cfg, flow_frames is not None)
     return CubeSet(
         raw=np.stack(raw_rows),  # already uint8 from the device
         flow=np.stack(flow_rows).astype(np.float32) if flow_rows else None,
@@ -265,6 +257,146 @@ def extract_cube_set(
         boxes=np.stack(box_rows).astype(np.float32),
         cells=np.array(cell_rows, np.int64),
         scenes=np.array(scene_rows, np.int64),
+    )
+
+
+def _k_eff(fc, boxes_list) -> int:
+    """The split's padded box count: its real peak rounded up to 8, at
+    most the configured capacity (an upper bound, not the working shape)."""
+    peak = max((np.asarray(b).reshape(-1, 4).shape[0] for b in boxes_list), default=1)
+    if peak > fc.max_boxes_per_frame:
+        raise ValueError(
+            f"a frame has {peak} boxes > max_boxes_per_frame="
+            f"{fc.max_boxes_per_frame}"
+        )
+    return min(fc.max_boxes_per_frame, max(-(-peak // 8) * 8, 8))
+
+
+def _whole_stack(a):
+    """A frame or flow source as one array or tensor: lazy stacks are read
+    whole through a slice (a LazyFlowStack has no __array__)."""
+    if isinstance(a, (np.ndarray, torch.Tensor)):
+        return a
+    return a[0: a.shape[0]]
+
+
+def extract_cube_set_resident(
+    cfg: PipelineConfig,
+    spec: DatasetSpec,
+    index: VideoIndex,
+    frames,
+    boxes_list: List[np.ndarray],
+    flow_frames=None,
+    block_mode: Optional[int] = None,
+    chunk: int = 32,
+    device="cuda",
+) -> CubeSet:
+    """Device-resident extraction (vec_vad_tpu/pipeline.py:254-431): the
+    same CubeSet as extract_cube_set, with raw (and flow) as tensors on
+    `device`.
+
+      * the frame stack (numpy, a lazy stack or a tensor already on the
+        device) goes up once, and every padded (frame, box) cube is cut,
+        chunk by chunk, into one uint8 buffer on the device; with flow,
+        every float32 flow cube and its motion magnitude into two more;
+      * the motion filter and the block routing run on host metadata only
+        (the boxes and the (N, K) magnitudes);
+      * one clamped gather compacts the kept rows, still on the device.
+
+    An empty result is the numpy CubeSet extract_cube_set returns."""
+    dev = resolve_device(device)
+    fc = cfg.fore
+    mc = cfg.model
+    n = index.total_frames
+    # a mismatch would otherwise surface as a clamped gather (the last
+    # frame duplicated), as in the JAX package
+    if frames.shape[0] != n or len(boxes_list) != n:
+        raise ValueError(
+            f"frames ({frames.shape[0]}) and boxes ({len(boxes_list)}) must both "
+            f"hold index.total_frames ({n}) entries"
+        )
+    block_mode = block_mode or fc.train_block_mode
+    k_eff = _k_eff(fc, boxes_list)
+    boxes_pad, valid = pad_boxes(boxes_list, k_eff)
+    windows = index.context_indices(mc.context_frame_num, mc.border_mode)
+    P = fc.patch_size
+
+    with torch.no_grad(), full_f32():
+        frames_dev = to_device(_whole_stack(frames), dev)
+        win_dev = torch.as_tensor(windows.reshape(n, -1), device=dev)
+        box_dev = torch.as_tensor(boxes_pad, device=dev)
+        cube_buf = torch.empty((n, k_eff, P, P, win_dev.shape[1] * frames_dev.shape[-1]),
+                               dtype=torch.uint8, device=dev)
+        for lo in range(0, n, chunk):
+            cube_buf[lo: lo + chunk] = extract_cubes(
+                frames_dev, win_dev[lo: lo + chunk], box_dev[lo: lo + chunk], P,
+                quantize=True)
+        del frames_dev
+        cube_buf = cube_buf.reshape((n * k_eff,) + cube_buf.shape[2:])
+        flow_buf = None
+        if flow_frames is not None:
+            of_windows = index.context_indices(mc.context_of_num, mc.border_mode)
+            ow_dev = torch.as_tensor(of_windows.reshape(n, -1), device=dev)
+            flow_dev = to_device(_whole_stack(flow_frames), dev)
+            flow_buf = torch.empty((n, k_eff, P, P, ow_dev.shape[1] * flow_dev.shape[-1]),
+                                   device=dev)
+            mag = torch.empty((n, k_eff), device=dev)
+            for lo in range(0, n, chunk):
+                flow_buf[lo: lo + chunk], mag[lo: lo + chunk] = extract_cubes(
+                    flow_dev, ow_dev[lo: lo + chunk], box_dev[lo: lo + chunk], P,
+                    quantize=False)
+            del flow_dev
+            flow_buf = flow_buf.reshape((n * k_eff,) + flow_buf.shape[2:])
+            mag_host = mag.cpu().numpy()
+        else:
+            # no flow modality: the motion filter passes everything
+            # (train.py:177-178)
+            mag_host = np.full((n, k_eff), 10000.0)
+
+    # host: validity, motion filter and block routing on metadata only
+    h_step = spec.frame_h / fc.h_block
+    w_step = spec.frame_w / fc.w_block
+    scene_idx = (
+        index.scene_idx
+        if index.scene_idx is not None
+        else np.ones(n, dtype=np.int64)
+    )
+    flat_rows, frame_ids, box_rows, cell_rows, scene_rows = [], [], [], [], []
+    for f, k in zip(*np.nonzero(valid)):
+        if mag_host[f, k] <= fc.motion_thr:
+            continue
+        b = boxes_pad[f, k]
+        for cell in calc_block_idx(b[0], b[2], b[1], b[3], h_step, w_step, block_mode):
+            flat_rows.append(f * k_eff + k)
+            frame_ids.append(f)
+            box_rows.append(b)
+            cell_rows.append(cell)
+            scene_rows.append(scene_idx[f])
+
+    if not flat_rows:
+        return _empty_cube_set(cfg, flow_frames is not None)
+    flat = torch.as_tensor(np.asarray(flat_rows, np.int64), device=dev)
+    flat = flat.clamp(0, n * k_eff - 1)
+    return CubeSet(
+        raw=cube_buf.index_select(0, flat),
+        flow=None if flow_buf is None else flow_buf.index_select(0, flat),
+        frame_ids=np.array(frame_ids, np.int64),
+        boxes=np.stack(box_rows).astype(np.float32),
+        cells=np.array(cell_rows, np.int64),
+        scenes=np.array(scene_rows, np.int64),
+    )
+
+
+def _empty_cube_set(cfg: PipelineConfig, with_flow: bool) -> CubeSet:
+    p, t = cfg.fore.patch_size, cfg.model.tot_raw_num
+    return CubeSet(
+        raw=np.zeros((0, p, p, t * 3), np.uint8),
+        flow=np.zeros((0, p, p, cfg.model.tot_of_num * 2), np.float32)
+        if with_flow else None,
+        frame_ids=np.zeros(0, np.int64),
+        boxes=np.zeros((0, 4), np.float32),
+        cells=np.zeros((0, 2), np.int64),
+        scenes=np.zeros(0, np.int64),
     )
 
 
@@ -285,6 +417,16 @@ def group_by_block(cubes: CubeSet) -> Dict[BlockKey, np.ndarray]:
         mask = np.all(keys == row, axis=1)
         out[tuple(int(v) for v in row)] = np.nonzero(mask)[0]
     return out
+
+
+def _rows(a, idx: np.ndarray):
+    """Rows `idx` of cube storage: numpy indexing, or an index_select that
+    keeps a device-resident tensor on its device. None stays None."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a.index_select(0, torch.as_tensor(idx, device=a.device))
+    return a[idx]
 
 
 def make_trainer(cfg: PipelineConfig, device="cuda"):
@@ -328,26 +470,19 @@ def train_model(
             # ShanghaiTech-scale blocks stream in saveSegNum-cube segments
             # per epoch (train.py:138-143,292-296)
             parts = [idx[lo: lo + seg] for lo in range(seg, idx.size, seg)]
-            segments = [
-                (
-                    train_cubes.raw[p],
-                    train_cubes.flow[p] if train_cubes.flow is not None else None,
-                )
-                for p in parts
-            ]
+            segments = [(_rows(train_cubes.raw, p), _rows(train_cubes.flow, p))
+                        for p in parts]
             model.blocks[key] = trainer.fit_block(
-                train_cubes.raw[idx[:seg]],
-                train_cubes.flow[idx[:seg]] if train_cubes.flow is not None else None,
+                _rows(train_cubes.raw, idx[:seg]),
+                _rows(train_cubes.flow, idx[:seg]),
                 seed=seed,
                 log_every=log_every,
                 segments=segments,
             )
         else:
-            flow = (
-                train_cubes.flow[idx] if train_cubes.flow is not None else None
-            )
             model.blocks[key] = trainer.fit_block(
-                train_cubes.raw[idx], flow, seed=seed, log_every=log_every
+                _rows(train_cubes.raw, idx), _rows(train_cubes.flow, idx),
+                seed=seed, log_every=log_every,
             )
     return model
 
@@ -378,8 +513,8 @@ def score_cubes(
             # (test.py:308-310)
             scores[idx] = big_number
             continue
-        flow = test_cubes.flow[idx] if test_cubes.flow is not None else None
-        raw_sc, of_sc = trainer.score_block(block, test_cubes.raw[idx], flow)
+        raw_sc, of_sc = trainer.score_block(block, _rows(test_cubes.raw, idx),
+                                            _rows(test_cubes.flow, idx))
         use_of = mc.use_flow and block.of_scores is not None
         scores[idx] = fuse_scores(
             raw_sc,
@@ -410,8 +545,8 @@ def pixel_score_masks(
     n_frames: int,
     frame_hw: Tuple[int, int],
 ) -> np.ndarray:
-    """Per-frame pixel score masks (test.py:350-358 splat semantics), by
-    the host splat."""
+    """Per-frame pixel score masks (test.py:350-358 splat semantics), on
+    the host (module docstring)."""
     return splat_score_masks(
         cube_scores, test_cubes.boxes, test_cubes.frame_ids, n_frames, frame_hw
     )

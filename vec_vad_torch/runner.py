@@ -15,9 +15,15 @@ device="cpu"), its f32 convolutions with TF32 off (device.full_f32).
 With a flow tree under optical_flow/ and a two-stream config
 (useFlow = True), `run_train` trains both streams and `run_test` scores
 and fuses them: calc-flow -> train -> test is the paper's pipeline.
+`resident=True` extracts a split on the device
+(pipeline.extract_cube_set_resident) and skips the cube cache; a config
+with compute_dtype = "bfloat16" trains in bf16 (train.trainer) and is
+scored in f32, as in the JAX package; `run_test(pixel_criterion=True)`
+adds the pixel-level AUROC (eval.metrics.pixel_level_roc) from the
+dataset's pixel GT (data.readers.load_pixel_masks: avenue's .mat files
+through scipy, the ped layout's .bmp masks through cv2).
 Not ported (ROADMAP.md): computing boxes where no fixture exists and
-`run_precompute_boxes` (item 4.1), the resident extraction (item 2.9),
-the pixel criterion (item 2.10) and calc-flow's mesh (item 5).
+`run_precompute_boxes` (item 4.1) and calc-flow's mesh (item 5).
 """
 
 from __future__ import annotations
@@ -27,19 +33,24 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from vec_vad_torch.config import PipelineConfig
-from vec_vad_torch.data.readers import LazyFlowStack, LazyFrameStack, load_frame_labels
+from vec_vad_torch.data.readers import (
+    LazyFlowStack,
+    LazyFrameStack,
+    load_frame_labels,
+    load_pixel_masks,
+)
 from vec_vad_torch.data.video_index import VideoIndex
-from vec_vad_torch.device import full_f32, resolve_device
-from vec_vad_torch.eval.metrics import save_roc_pr_curve_data
+from vec_vad_torch.device import full_f32, resolve_device, resolve_dtype
+from vec_vad_torch.eval.metrics import pixel_level_roc, save_roc_pr_curve_data
 from vec_vad_torch.fore.detector import PrecomputedDetector
 from vec_vad_torch.models.flownet import load_flownet_checkpoint, make_flownet2
 from vec_vad_torch.pipeline import (
     CubeSet,
     VadModel,
     extract_cube_set,
+    extract_cube_set_resident,
     frame_level_scores,
     make_trainer,
     pixel_score_masks,
@@ -53,8 +64,6 @@ from vec_vad_torch.runtime.artifacts import (
     save_vad_model,
 )
 
-_FLOW_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
 
 @dataclass
 class SplitData:
@@ -66,11 +75,6 @@ class SplitData:
 
 def _dataset_root(cfg: PipelineConfig, base: str) -> str:
     return os.path.join(base, cfg.raw_dataset_dir, cfg.dataset_name)
-
-
-def _refuse(flag: bool, what: str, item: str) -> None:
-    if flag:
-        raise NotImplementedError(f"{what} is not ported: ROADMAP.md {item}")
 
 
 def load_split(cfg: PipelineConfig, base: str, split: str) -> SplitData:
@@ -167,6 +171,20 @@ def _extract_cached(
     return cache.get_or_compute(f"foreground_{split}", fp, compute, save, load)
 
 
+def _extract(
+    cfg: PipelineConfig, base: str, split: str, data: SplitData,
+    block_mode: int, resident: bool, device,
+) -> CubeSet:
+    """A split's CubeSet: device-resident (no cube cache; the cubes stay
+    on the device) or through the cube cache."""
+    if resident:
+        return extract_cube_set_resident(
+            cfg, cfg.dataset, data.index, data.frames, data.boxes,
+            flow_frames=data.flow, block_mode=block_mode, device=device,
+        )
+    return _extract_cached(cfg, base, split, data, block_mode, device)
+
+
 def model_path(cfg: PipelineConfig, base: str) -> str:
     return os.path.join(
         base, cfg.data_root_dir, cfg.modality,
@@ -183,14 +201,15 @@ def run_train(
     device="cuda",
 ) -> Tuple[VadModel, str]:
     """Full training pipeline on `device`; returns the model and its
-    artifact path (the JAX package's .npz layout)."""
-    _refuse(resident, "resident extraction (--resident)", "Queue 1 item 2.9")
+    artifact path (the JAX package's .npz layout; the same path for
+    either compute dtype). resident=True extracts the cubes on the device
+    (they never leave it on the way to the trainer) and skips the cube
+    cache, re-extracting on every run."""
     dev = resolve_device(device)
     with full_f32():
         data = load_split(cfg, base, "train")
-        cubes = _extract_cached(
-            cfg, base, "train", data, cfg.fore.train_block_mode, dev
-        )
+        cubes = _extract(cfg, base, "train", data, cfg.fore.train_block_mode,
+                         resident, dev)
         trainer = make_trainer(cfg, dev)
         model = train_model(cfg, cubes, trainer=trainer, seed=seed,
                             log_every=log_every)
@@ -213,18 +232,18 @@ def run_test(
     """Scoring + evaluation on `device`; returns a result dict with AUROC
     etc. per_video_norm: min-max normalize frame scores within each video
     before AUROC (optional evaluation variant; the reference normalizes
-    only by training statistics)."""
-    _refuse(pixel_criterion, "the pixel-level criterion (--pixel-criterion)",
-            "Queue 1 item 2.10")
-    _refuse(resident, "resident extraction (--resident)", "Queue 1 item 2.9")
+    only by training statistics). pixel_criterion: also evaluate the
+    pixel-level coverage criterion (needs the dataset's pixel GT masks;
+    adds 'pixel_auroc'). resident: extract the test split on the device
+    (the cubes stay there for scoring; no cube cache), as run_train's
+    flag. A bf16-trained model is scored in f32."""
     dev = resolve_device(device)
     if model is None:
         model = load_vad_model(model_path(cfg, base))
     with full_f32():
         data = load_split(cfg, base, "test")
-        cubes = _extract_cached(
-            cfg, base, "test", data, cfg.fore.test_block_mode, dev
-        )
+        cubes = _extract(cfg, base, "test", data, cfg.fore.test_block_mode,
+                         resident, dev)
         trainer = make_trainer(cfg, dev)
         cube_scores = score_cubes(model, cubes, trainer=trainer)
     n = data.index.total_frames
@@ -232,12 +251,14 @@ def run_test(
 
     results_dir = os.path.join(base, cfg.results_dir, cfg.dataset_name)
     os.makedirs(results_dir, exist_ok=True)
-    if save_masks:
+    masks = None
+    if save_masks or pixel_criterion:
         # actual stream geometry, not the config table's (synthetic
         # workspaces run reduced frame sizes under a real dataset name)
         frame_hw = tuple(data.frames.shape[1:3])
         masks = pixel_score_masks(cube_scores, cubes, n, frame_hw)
-        np.save(os.path.join(results_dir, "score_masks.npy"), masks)
+        if save_masks:
+            np.save(os.path.join(results_dir, "score_masks.npy"), masks)
 
     if per_video_norm:
         from vec_vad_torch.score.scoring import normalize_scores_per_video
@@ -253,6 +274,16 @@ def run_test(
     )
     out["frame_scores"] = frame_scores
     out["labels"] = labels
+    if pixel_criterion:
+        gt_masks = load_pixel_masks(cfg.dataset_name, root, data.index)
+        out["pixel_auroc"] = pixel_level_roc(
+            masks, gt_masks,
+            file_path=os.path.join(
+                results_dir,
+                f"{cfg.modality}_{cfg.fore.extraction_mode}_{cfg.method}"
+                "_pixel_results.npz",
+            ),
+        )
     return out
 
 
@@ -328,7 +359,7 @@ def run_calc_flow(
     )
 
     dev = resolve_device(device)
-    dtype = _FLOW_DTYPES[flow_dtype]
+    dtype = resolve_dtype(flow_dtype)
     chunk = chunk if chunk is not None else (
         8 if flow_dtype == "bfloat16" else 4
     )

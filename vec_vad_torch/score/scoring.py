@@ -1,8 +1,8 @@
 """Test-time score normalization, fusion and aggregation: a copy of the
 host (NumPy) part of vec_vad_tpu/score/scoring.py, kept here so the port
 imports nothing of the JAX package (tests/test_torch_isolation.py holds
-the functions equal to the originals). `splat_score_masks_device` is not
-ported; `pixel_score_masks` uses the host splat.
+the functions equal to the originals), and `splat_score_masks_device`,
+the device splat, in torch.
 
 Reference semantics (test.py:269-358):
   * per-cube MSE scores z-normalized by the block's TRAINING score mean/std
@@ -20,6 +20,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from vec_vad_torch.device import resolve_device
 
 BIG_NUMBER = 100000.0  # test.py:196
 
@@ -123,3 +126,50 @@ def splat_score_masks(
         region = masks[f, y0[m] : y1[m], x0[m] : x1[m]]
         np.maximum(region, cube_scores[m], out=region)
     return masks
+
+
+def splat_score_masks_device(
+    cube_scores: np.ndarray,
+    boxes: np.ndarray,
+    frame_ids: np.ndarray,
+    n_frames: int,
+    frame_hw: Tuple[int, int],
+    big_number: float = BIG_NUMBER,
+    frame_chunk: int = 64,
+    device="cuda",
+) -> np.ndarray:
+    """The splat of splat_score_masks on `device`
+    (vec_vad_tpu/score/scoring.py:129-188): a per-pixel max over each
+    frame's boxes through broadcast box-membership masks, `frame_chunk`
+    frames a call, with the boxes' integer-ceil edges as int32. The same
+    output as splat_score_masks (pipeline.pixel_score_masks uses the host
+    splat: this one was slower on the H100, its masks crossing PCIe)."""
+    dev = resolve_device(device)
+    h, w = frame_hw
+    # bucket cubes by frame into a padded (n_frames, K) layout
+    order = np.argsort(frame_ids, kind="stable")
+    fids = frame_ids[order]
+    counts = np.bincount(fids, minlength=n_frames)
+    K = max(int(counts.max()), 1) if counts.size else 1
+    slot = np.zeros_like(fids)
+    if fids.size:
+        starts = np.r_[0, np.cumsum(counts)[:-1]]
+        slot = np.arange(fids.size) - starts[fids]
+    sc_pad = np.full((n_frames, K), -big_number, np.float32)
+    bx_pad = np.zeros((n_frames, K, 4), np.float32)
+    sc_pad[fids, slot] = cube_scores[order]
+    bx_pad[fids, slot] = boxes[order]
+
+    ys = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    xs = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    out = np.empty((n_frames, h, w), np.float32)
+    for lo in range(0, n_frames, frame_chunk):
+        sc = torch.from_numpy(sc_pad[lo: lo + frame_chunk]).to(dev)
+        edges = torch.ceil(torch.from_numpy(bx_pad[lo: lo + frame_chunk]).to(dev))
+        x0, y0, x1, y1 = (edges[..., i].to(torch.int32)[..., None, None]
+                          for i in range(4))
+        inside = (xs >= x0) & (xs < x1) & (ys >= y0) & (ys < y1)  # (B, K, h, w)
+        vals = torch.where(inside, sc[..., None, None],
+                           torch.tensor(-big_number, dtype=torch.float32, device=dev))
+        out[lo: lo + frame_chunk] = vals.amax(dim=1).cpu().numpy()
+    return out

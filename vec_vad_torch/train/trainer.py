@@ -26,8 +26,19 @@ A two-stream block fitted without flow inputs trains and scores its flow
 head against zero targets and keeps of_scores=None, as the JAX package
 does (its 1-row zero dummy read through a clamped index).
 
-Not ported (ROADMAP.md Queue 1): bf16 compute_dtype (item 2.7), the
-parallel GridTrainer (item 2.8) and fit_block_budget (item 2.11).
+compute_dtype="bfloat16" trains as the JAX package's make_loss_fn does
+(vec_vad_tpu/train/trainer.py:84-117): inside the loss the f32 master
+parameters (BatchNorm's scale and bias too) are cast to bf16 copies, the
+cast differentiated, so the gradients and Adam's state stay f32; x and
+x_of are cast to bf16, BatchNorm's batch statistics come out in bf16
+(models/layers.py) while its running statistics stay f32, and the errors
+are cast back to f32 before the masked mean. The casts are explicit
+(torch.func.functional_call over the bf16 copies), not torch.autocast,
+whose cast points differ. The training-score pass after the fit runs in
+f32 whatever the compute dtype, as make_score_step does.
+
+Not ported (ROADMAP.md Queue 1): the parallel GridTrainer (item 2.8) and
+fit_block_budget (item 2.11).
 """
 
 from __future__ import annotations
@@ -37,24 +48,16 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.func import functional_call
 
 from vec_vad_torch.config import CompletionConfig
-from vec_vad_torch.device import full_f32, resolve_device
+from vec_vad_torch.device import full_f32, resolve_device, resolve_dtype
 from vec_vad_torch.models.completion import make_completion_net
 from vec_vad_torch.models.convert import completion_from_jax
 from vec_vad_torch.pipeline import TrainedBlock, to_device
 
 State = Dict[str, torch.Tensor]
-
-
-def require_f32(cfg: CompletionConfig) -> None:
-    """Refuse the training dtype the port does not train or score in,
-    naming the ROADMAP item that ports it."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} training is not ported: "
-            "ROADMAP.md Queue 1 item 2.7 (bf16 training)"
-        )
+Cubes = Union[np.ndarray, torch.Tensor]
 
 
 def _masked_mean_sq(err: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -72,8 +75,13 @@ def _cube_scores(err: torch.Tensor) -> torch.Tensor:
     return err.square().sum(dim=(0, 2, 3, 4))
 
 
-def _quantize_u8(raw: np.ndarray) -> np.ndarray:
-    """[0, 1] float cubes -> the uint8 levels the schedule trains on."""
+def _quantize_u8(raw):
+    """[0, 1] float cubes -> the uint8 levels the schedule trains on; a
+    tensor (a device-resident CubeSet's rows) stays where it is."""
+    if isinstance(raw, torch.Tensor):
+        if raw.dtype == torch.uint8:
+            return raw
+        return torch.clamp(torch.round(raw * 255.0), 0, 255).to(torch.uint8)
     if raw.dtype == np.uint8:
         return raw
     return np.clip(np.round(raw * 255.0), 0, 255).astype(np.uint8)
@@ -86,10 +94,10 @@ class BlockTrainer(nn.Module):
     def __init__(self, cfg: CompletionConfig, patch_size: int = 32,
                  device="cuda"):
         super().__init__()
-        require_f32(cfg)
         self.cfg = cfg
         self.patch_size = patch_size
         self.device = resolve_device(device)
+        self.compute_dtype = resolve_dtype(cfg.compute_dtype)
         self.net = make_completion_net(cfg, self.device)
         self.opt: Optional[torch.optim.Adam] = None
 
@@ -157,12 +165,19 @@ class BlockTrainer(nn.Module):
         """(loss, loss_raw, loss_of) of one batch (train-mode forward: it
         updates the BatchNorm running statistics). x_of: the batch's flow
         cubes, read only by a flow head; without one the loss is loss_raw
-        and loss_of is 0."""
-        out = self.net(x, x_of, True, batch_weight)
-        loss_raw = _masked_mean_sq(out.raw_out - out.raw_tgt.detach(), w)
+        and loss_of is 0. A bf16 compute dtype runs the forward on bf16
+        copies of the parameters and inputs (module docstring)."""
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            out = self.net(x, x_of, True, batch_weight)
+        else:
+            params = {k: p.to(dt) for k, p in self.net.named_parameters()}
+            out = functional_call(self.net, params, (
+                x.to(dt), None if x_of is None else x_of.to(dt), True, batch_weight))
+        loss_raw = _masked_mean_sq((out.raw_out - out.raw_tgt.detach()).float(), w)
         if out.of_out is None:
             return loss_raw, loss_raw, torch.zeros_like(loss_raw)
-        loss_of = _masked_mean_sq(out.of_out - out.of_tgt.detach(), w)
+        loss_of = _masked_mean_sq((out.of_out - out.of_tgt.detach()).float(), w)
         cfg = self.cfg
         return cfg.lambda_raw * loss_raw + cfg.lambda_of * loss_of, loss_raw, loss_of
 
@@ -268,11 +283,11 @@ class BlockTrainer(nn.Module):
 
     def fit_block(
         self,
-        raw_inputs: np.ndarray,
-        of_inputs: Optional[np.ndarray] = None,
+        raw_inputs: Cubes,
+        of_inputs: Optional[Cubes] = None,
         seed: int = 0,
         log_every: int = 0,
-        segments: Optional[List[Tuple[np.ndarray, Optional[np.ndarray]]]] = None,
+        segments: Optional[List[Tuple[Cubes, Optional[Cubes]]]] = None,
         init_state: Optional[State] = None,
     ) -> TrainedBlock:
         """Train one block and collect its training scores.
@@ -285,7 +300,10 @@ class BlockTrainer(nn.Module):
         pattern, train.py:292-296); streamed segments train on their
         inputs as given. of_scores is None unless the config fuses flow
         and of_inputs is given (the JAX package's "trained without a flow
-        stream" marker)."""
+        stream" marker). Every input may be a numpy array or a tensor (a
+        device-resident CubeSet's rows: nothing goes back to the host).
+        full_f32 keeps the f32 training-score pass (and an f32 fit) off
+        TF32; bf16 convolutions do not read those flags."""
         cfg = self.cfg
         with full_f32():
             self.start_fit(init_state if init_state is not None
@@ -299,11 +317,11 @@ class BlockTrainer(nn.Module):
                 segs, idx, wmask = self._segment_schedule(
                     [r.shape[0] for r in raws], rng)
             else:
-                bufs = [self.upload(_quantize_u8(raw_inputs))]
+                q = _quantize_u8(raw_inputs)
+                bufs = [self.upload(q)]
                 # the score pass reuses the uploaded uint8 buffer; float
                 # inputs were quantised for training and score as given
-                score_bufs = (bufs if raw_inputs.dtype == np.uint8
-                              else [self.upload(raw_inputs)])
+                score_bufs = bufs if q is raw_inputs else [self.upload(raw_inputs)]
                 of_bufs = [self.upload_flow(of_inputs, raw_inputs.shape)]
                 idx, wmask = self._epoch_schedule(raw_inputs.shape[0], rng)
                 segs = np.zeros(idx.shape[0], np.int64)
@@ -342,8 +360,8 @@ class BlockTrainer(nn.Module):
     def score_block(
         self,
         state_or_block: Union[State, TrainedBlock],
-        raw_inputs,
-        of_inputs: Optional[np.ndarray] = None,
+        raw_inputs: Cubes,
+        of_inputs: Optional[Cubes] = None,
         batch_size: Optional[int] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Eval-mode per-cube (raw, of) scores, in input order. uint8 cubes
