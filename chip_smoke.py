@@ -1,8 +1,10 @@
 """Smoke run of vec_vad_torch on one NVIDIA GPU: builds the hand-written
 CUDA kernels, holds each against its plain PyTorch version, serves the
 live-flow two-stream slice end to end at full width, trains FlowNetC
-(and takes a FlowNet2 fine-tuning step) at FlyingChairs' 384x512, and
-runs calc-flow, train and test at full width, at dataset scale too.
+(and takes a FlowNet2 fine-tuning step) at FlyingChairs' 384x512, runs
+calc-flow, train and test at full width, at dataset scale too, and
+drives the serving surface (push_many, probes, bf16, camera fleets with
+and without live flow, the serve CLI).
 
     python3 chip_smoke.py
 
@@ -115,6 +117,32 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      prints ms per bf16 step beside phase 7's f32 step, run_train's wall
      and extraction, frames/s and peak device memory of every scorer, and
      a torch.profiler table of 5 bf16 steps with the transposes' share.
+  9. serving surface: on phase 3's model, FlowNet2 (rebuilt from its seed)
+     and stream with seeded precomputed flow maps, then on phase 7's
+     workspace (deleted after). (a) a StreamingScorer with both TF32 flags
+     on scores as with them off and leaves them on (and, with its
+     full_f32 taken out, how far TF32 moves the scores); (b)
+     pipeline_depth 2 equal to depth 0 bit for bit, sustained frames/s of
+     each, unsynchronised; (c) push_many at k=8 of both scorers against
+     k pushes (2e-4 of the largest score), frames/s, one K1 launch a
+     batch, K1 on a batch's conv3 features against the plain version;
+     (d) time_device_step of both beside the synchronised push median,
+     the probed streams' scores equal to unprobed ones; (e) bf16 scoring
+     against f32 (correlation > 0.98), ms per push of each; (f)
+     MultiCameraScorer at C=8, each camera on its own 24-frame video
+     started a tick after the previous one, against a StreamingScorer
+     per video (2e-4), ms/tick, aggregate frames/s, time_device_tick
+     batched and as a per-camera loop; (g) MultiCameraFlowScorer at C=8
+     with FlowNet2: one K1 launch a live tick, K1 on a tick's conv3
+     features, each camera against a FlowStreamingScorer (2e-4), the
+     batched flow against each pair alone (1e-3 of the largest |flow|),
+     ms/tick, frames/s, time_device_tick, peak memory; (h) `serve`
+     through cli.main on phase 7's workspace: the streamed AUROC over the
+     test split within 1e-3 of phase 7's, `--live-flow --frames 160` and
+     `--cameras 8 --live-flow --frames 32` (spread 2e-4 of the largest
+     score), one K1 launch a live push or tick, and FlowStreamingScorer
+     over the first test video against phase 7's offline frame scores
+     (5e-4 of the largest).
 
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
@@ -123,7 +151,9 @@ before it the {"kernels": [...]} record, and the last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
@@ -135,7 +165,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vec_vad_torch import config, infer, kernels, pipeline, runner
+from vec_vad_torch import cli, config, infer, kernels, pipeline, runner
 from vec_vad_torch.cli import make_flow_net
 from vec_vad_torch.config import CompletionConfig, ForegroundConfig, PipelineConfig
 from vec_vad_torch.data import readers
@@ -153,13 +183,21 @@ from vec_vad_torch.ops.stc import pad_boxes
 from vec_vad_torch.pipeline import TrainedBlock, VadModel
 from vec_vad_torch.runtime.artifacts import load_vad_model
 from vec_vad_torch.score import scoring as score_mod
-from vec_vad_torch.serve import FlowStreamingScorer
+from vec_vad_torch.serve import (
+    FlowStreamingScorer,
+    MultiCameraFlowScorer,
+    MultiCameraScorer,
+    StreamingScorer,
+)
+from vec_vad_torch.serve import streaming as serve_streaming
 from vec_vad_torch.train.trainer import BlockTrainer
 
 SEED = 0
 FRAME_HW = (240, 360)  # UCSDped2
 FLOW_HW = (384, 512)  # the FlowNet2 protocol
 VIDEO_LENGTHS = (16, 16, 2)  # the 2-frame video exercises the tail rule
+# the served model (phases 3 and 9): 5raw1of, nf=32, patch 32, 64 boxes
+SERVE_MODEL = dict(nf=32, patch=32, seed=SEED + 1)
 SERVE_SHAPE = (1, 48, 64, 256)  # FlowNetC conv3 features at 384x512
 TRAIN_SHAPE = (8, 48, 64, 256)  # the same at the training batch of 8
 CALC_SHAPE = (4, 48, 64, 256)  # the same in a calc-flow f32 batch of 4
@@ -221,6 +259,32 @@ RESIDENT_TOL = 2e-4
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES_S = 3.35e12
+# serving surface (phase 9): push_many's frames a call, and a fleet of
+# FLEET_C cameras, each on its own video of FLEET_LENGTH frames
+SERVE_K, FLEET_C, FLEET_LENGTH = 8, 8, 24
+# frames `serve --live-flow` and `serve --cameras FLEET_C --live-flow`
+# stream from phase 7's first test video
+CLI_LIVE_FRAMES, CLI_FLEET_FRAMES = 160, 32
+# push_many, the fleet and the live fleet against k pushes / one scorer a
+# camera, relative to the largest score: the same work in batches, so
+# cuDNN sums in other orders (the JAX package's serving bound)
+SERVE_REL_TOL = 2e-4
+# a camera's flow in the live fleet's batch against its pair alone,
+# relative to the largest |flow| (calc-flow's batch-against-single bound)
+LIVE_FLOW_TOL = 1e-3
+# `serve`'s streamed AUROC against phase 7's `test` AUROC
+STREAM_AUROC_TOL = 1e-3
+# live flow against phase 7's offline frame scores (calc-flow's tree at
+# batches of 4 against the live batch of 1), relative to the largest
+# score: the run_train -> run_test bound
+LIVE_OFFLINE_TOL = 5e-4
+# two runs of the same f32 scoring on the card, relative to the largest
+# score: they may differ in a score's last bit (1.2e-4 at scores near
+# 1,900, 6.5e-8 of the largest, on an H100: cuDNN's default algorithms
+# may sum in another order from one call to the next, and with
+# cudnn.deterministic the runs are equal), while TF32 moved them 5.0e-5
+# there; the bound is 15 times that last bit
+RERUN_REL_TOL = 1e-6
 # K1 vs its plain version, f32: one f32 dot of C products summed in
 # another order, then scaled by 1/C -> a few ulp of the output
 K1_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
@@ -1648,7 +1712,391 @@ def dataset_scale_phase(ts: dict) -> None:
           and abs(auc["resident bf16"] - auc["resident"]) <= BF16_AUROC_TOL,
           f"bf16 scoring AUROC {auc}")
     shutil.rmtree(DS_BASE, ignore_errors=True)
-    shutil.rmtree(TS_BASE, ignore_errors=True)
+
+
+# -- phase 9: the serving surface ------------------------------------------
+
+
+def push_stream(scorer, videos, flows=None, sync=False, probe=None):
+    """Every video through push(): with its flow maps (precomputed flow),
+    or live, with end_video() at each video's end. Returns (scores,
+    per-push ms, probe ms): `sync` synchronises after each push (push 1
+    of a live video, a ring write, is not timed); `probe` = (video,
+    frame) runs time_device_step there, before that frame's push."""
+    live = isinstance(scorer, FlowStreamingScorer)
+    scores, lat, probe_ms = [], [], None
+    for i, (frames, boxes) in enumerate(videos):
+        scorer.start_video()
+        for t, (f, b) in enumerate(zip(frames, boxes)):
+            if probe == (i, t):
+                probe_ms = scorer.time_device_step(f, b)
+            t0 = time.perf_counter()
+            s = scorer.push(f, b) if live else scorer.push(f, b, flow=flows[i][t])
+            if sync:
+                torch.cuda.synchronize()
+            if not (live and t == 1):
+                lat.append((time.perf_counter() - t0) * 1e3)
+            if s is not None:
+                scores.append(s)
+        if live:
+            s = scorer.end_video()
+            if s is not None:
+                scores.append(s)
+    scores += scorer.drain()
+    return np.asarray(scores, np.float64), lat, probe_ms
+
+
+def many_stream(scorer, videos, k, flows=None):
+    """Every video through push_many in batches of k (live: end_video at
+    each video's end); returns the scores."""
+    live = isinstance(scorer, FlowStreamingScorer)
+    out = []
+    for i, (frames, boxes) in enumerate(videos):
+        scorer.start_video()
+        for lo in range(0, len(frames), k):
+            args = (np.stack(frames[lo:lo + k]), boxes[lo:lo + k])
+            out += (scorer.push_many(*args) if live
+                    else scorer.push_many(*args, flows[i][lo:lo + k]))
+        if live:
+            s = scorer.end_video()
+            if s is not None:
+                out.append(s)
+    return np.asarray(out + scorer.drain(), np.float64)
+
+
+def rel_diff(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"shapes {got.shape} / {want.shape}")
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def k1_counted(fn):
+    """(fn(), K1 launches during it): the counts set to 0 just before and
+    read just after."""
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts["correlation"]
+
+
+def conv3_hook(net, batch: int):
+    """Capture the first (a, b) conv3 features of batch `batch` a forward
+    of `net` (FlowNet2) computes; returns (list, handle)."""
+    conv3 = []
+    handle = net.flownetc.conv3.register_forward_hook(
+        lambda m, i, o: conv3.append(o.detach().clone())
+        if len(conv3) < 2 and o.shape[0] == batch else None)
+    return conv3, handle
+
+
+def med(lat) -> float:
+    return float(np.median(lat))
+
+
+def serving_surface_phase() -> dict:
+    """The serving surface on the card (module docstring, phase 9, a-g):
+    phase 3's model, FlowNet2 and stream, and a fleet of FLEET_C cameras.
+    Returns K1's launches on these paths and its largest error on their
+    conv3 features."""
+    model = make_model(**SERVE_MODEL)
+    videos = make_stream(FRAME_HW, VIDEO_LENGTHS, seed=SEED + 2)
+    rng = np.random.default_rng(SEED + 3)
+    flows = [rng.normal(0.0, 1.0, (len(f),) + FRAME_HW + (2,)).astype(np.float32)
+             for f, _ in videos]
+    n = sum(VIDEO_LENGTHS)
+    first = VIDEO_LENGTHS[0]  # pushes of the first video: warm-up
+
+    def scorer(**kw):
+        return StreamingScorer.from_model(model, device="cuda", **kw)
+
+    # (a) f32 scoring with TF32 off whatever the caller's flags
+    base, lat32, _ = push_stream(scorer(), videos, flows, sync=True)
+    check(base.shape == (n,) and np.isfinite(base).all(), f"scores {base.shape}")
+    again, _, _ = push_stream(scorer(), videos, flows)  # the run-to-run floor
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on, _, _ = push_stream(scorer(), videos, flows)
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        # the fault repaired: the same stream with the scorer's full_f32 taken out
+        saved = serve_streaming.full_f32
+        serve_streaming.full_f32 = lambda dtype=None: contextlib.nullcontext()
+        try:
+            tf32, _, _ = push_stream(scorer(), videos, flows)
+        finally:
+            serve_streaming.full_f32 = saved
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"serving-surface: (a) StreamingScorer, {n} frames with precomputed flow, "
+          f"max |score| {np.abs(base).max():.4f}; TF32 flags on: scores max |diff| "
+          f"{np.abs(on - base).max():.3e} from the flags-off run (a second flags-off "
+          f"run {np.abs(again - base).max():.3e}), flags after {flags}; with the "
+          f"scorer's full_f32 taken out (the fault) {np.abs(tf32 - base).max():.3e}, "
+          f"/ max |score| {rel_diff(tf32, base):.3e} (bound {RERUN_REL_TOL})", flush=True)
+    check(rel_diff(on, base) <= RERUN_REL_TOL, "TF32 flags on changed the f32 scores")
+    check(flags == (True, True), f"the caller's TF32 flags were not restored: {flags}")
+
+    # (b) pipelining: depth 2 against depth 0, sustained and unsynchronised
+    fps, diffs = {0: [], 2: []}, {0: [], 2: []}
+    for depth in (0, 2, 2, 0):
+        sc = scorer(pipeline_depth=depth)
+        push_stream(sc, videos[:1], flows[:1])  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _, _ = push_stream(sc, videos, flows)
+        fps[depth].append(n / (time.perf_counter() - t0))
+        diffs[depth].append(rel_diff(got, base))
+    print(f"serving-surface: (b) sustained frames/s (unsynchronised, {n} frames, "
+          f"turns 0, 2, 2, 0): depth 0 {fps[0]}, depth 2 {fps[2]}; scores max |diff| "
+          f"/ max |score| from (a)'s run: depth 0 {diffs[0]}, depth 2 {diffs[2]} "
+          f"(bound {RERUN_REL_TOL})", flush=True)
+    check(max(diffs[0] + diffs[2]) <= RERUN_REL_TOL, f"depth 2 against depth 0 {diffs}")
+    # where depth 2's time goes: the device's busy share over a video's
+    # pushes, and the host's waits on the device
+    from torch.profiler import ProfilerActivity, profile
+
+    sc = scorer(pipeline_depth=2)
+    push_stream(sc, videos[:1], flows[:1])  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        push_stream(sc, videos[1:2], flows[1:2])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    waits = {e.key: e.count for e in prof.key_averages()
+             if "Synchronize" in e.key or "Memcpy" in e.key}
+    busy_us = device_busy_us(prof)
+    print(f"serving-surface: (b) depth 2 profile over {VIDEO_LENGTHS[1]} pushes: wall "
+          f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+          f"({100 * busy_us / wall_us:.1f} %); host waits and copies {waits}", flush=True)
+
+    # (c) push_many against k pushes, both scorers
+    sc = scorer()
+    many_stream(sc, videos[:1], SERVE_K, flows[:1])  # warm
+    many, many_s = timed(lambda: many_stream(sc, videos, SERVE_K, flows))
+    rel_many = rel_diff(many, base)
+    flow_net = make_flownet2(SEED, device="cuda")
+
+    def flow_scorer(**kw):
+        return FlowStreamingScorer.from_model(model, flow_net=flow_net,
+                                              flow_model_hw=FLOW_HW, device="cuda", **kw)
+
+    (fref, flat, _), ref_launches = k1_counted(
+        lambda: push_stream(flow_scorer(), videos, sync=True))
+    fs = flow_scorer()
+    many_stream(fs, videos[:1], SERVE_K)  # warm
+    conv3, hook = conv3_hook(flow_net, SERVE_K)
+    (fmany, fmany_s), many_launches = k1_counted(
+        lambda: timed(lambda: many_stream(fs, videos, SERVE_K)))
+    hook.remove()
+    want_launches = sum(-(-ln // SERVE_K) + (ln >= 2) for ln in VIDEO_LENGTHS)
+    hook_err = check_fwd(*(a.contiguous() for a in conv3))
+    rel_fmany = rel_diff(fmany, fref)
+    print(f"serving-surface: (c) push_many k={SERVE_K}: StreamingScorer {n / many_s:.1f} "
+          f"frames/s (synchronised at the end), against k pushes max |diff| / max "
+          f"|score| {rel_many:.3e}; FlowStreamingScorer {n / fmany_s:.1f} frames/s, "
+          f"{rel_fmany:.3e} (bound {SERVE_REL_TOL}); K1 launches {many_launches} for "
+          f"{want_launches} batches and tails (one FlowNet2 forward a batch), pushes "
+          f"{ref_launches}; K1 on push_many's conv3 features {tuple(conv3[0].shape)} "
+          f"max_abs_err={hook_err:.3e}", flush=True)
+    check(rel_many <= SERVE_REL_TOL and rel_fmany <= SERVE_REL_TOL,
+          f"push_many against k pushes: {rel_many}, {rel_fmany}")
+    check(many_launches == want_launches, f"push_many K1 launches {many_launches}")
+    check(ref_launches == n, f"live pushes K1 launches {ref_launches} for {n} frames")
+
+    # (d) the probes, mid-video: the next scores as an unprobed scorer's
+    probed, _, probe_ms = push_stream(scorer(), videos, flows, probe=(1, 8))
+    (fprobed, _, fprobe_ms), probe_launches = k1_counted(
+        lambda: push_stream(flow_scorer(), videos, probe=(1, 8)))
+    print(f"serving-surface: (d) time_device_step: StreamingScorer {probe_ms:.3f} ms "
+          f"(synchronised push median {med(lat32[first:]):.3f} ms), FlowStreamingScorer "
+          f"{fprobe_ms:.3f} ms (push median {med(flat[first:]):.3f} ms); probed "
+          f"streams' scores max |diff| / max |score| {rel_diff(probed, base):.3e} and "
+          f"{rel_diff(fprobed, fref):.3e} from unprobed ones (bound {RERUN_REL_TOL})",
+          flush=True)
+    check(rel_diff(probed, base) <= RERUN_REL_TOL
+          and rel_diff(fprobed, fref) <= RERUN_REL_TOL,
+          "a probe changed the scores that follow it")
+
+    # (e) bf16 scoring against f32
+    b16, lat16, _ = push_stream(scorer(compute_dtype=torch.bfloat16), videos, flows,
+                                sync=True)
+    corr = float(np.corrcoef(b16, base)[0, 1])
+    print(f"serving-surface: (e) bf16 scores against f32: correlation {corr:.6f} "
+          f"(bound > {BF16_CORR}), max |diff| / max |score| {rel_diff(b16, base):.3e}; "
+          f"ms per push (synchronised median) bf16 {med(lat16[first:]):.3f}, f32 "
+          f"{med(lat32[first:]):.3f}", flush=True)
+    check(np.isfinite(b16).all() and corr > BF16_CORR, f"bf16 correlation {corr}")
+
+    # (f) the fleet: camera c starts its own video at tick c
+    fleet_videos = make_stream(FRAME_HW, (FLEET_LENGTH,) * FLEET_C, seed=SEED + 9)
+    fleet_flows = [rng.normal(0.0, 1.0, (FLEET_LENGTH,) + FRAME_HW + (2,))
+                   .astype(np.float32) for _ in range(FLEET_C)]
+    n_ticks = FLEET_C - 1 + FLEET_LENGTH
+
+    def tick_inputs(t):
+        j = [min(max(t - c, 0), FLEET_LENGTH - 1) for c in range(FLEET_C)]
+        return (np.stack([fleet_videos[c][0][j[c]] for c in range(FLEET_C)]),
+                [fleet_videos[c][1][j[c]] for c in range(FLEET_C)],
+                np.stack([fleet_flows[c][j[c]] for c in range(FLEET_C)]))
+
+    fleet = MultiCameraScorer.from_model(model, n_cameras=FLEET_C, device="cuda")
+    fleet.start_video()
+    rows, lat = [], []
+    for t in range(n_ticks):
+        if t < FLEET_C:
+            fleet.start_video(camera=t)
+        f, b, fl = tick_inputs(t)
+        t0 = time.perf_counter()
+        rows.append(fleet.push_tick(f, b, flows=fl))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    rows = np.asarray(rows, np.float64)
+    ref = StreamingScorer.from_model(model, device="cuda")
+    fleet_rel = max(rel_diff(rows[c:c + FLEET_LENGTH, c],
+                             push_stream(ref, [fleet_videos[c]], [fleet_flows[c]])[0])
+                    for c in range(FLEET_C))
+    f, b, _ = tick_inputs(n_ticks - 1)
+    tick_ms = fleet.time_device_tick(f, b)
+    # the per-camera loop form of the same tick, timed beside it
+    batched = fleet._score_windows
+    fleet._score_windows = lambda wd, owd, bx: torch.cat(
+        [batched(wd[c:c + 1], owd[c:c + 1], bx[c:c + 1]) for c in range(FLEET_C)])
+    loop_ms = fleet.time_device_tick(f, b)
+    del fleet._score_windows
+    tick_med = med(lat[2:])
+    print(f"serving-surface: (f) MultiCameraScorer, {FLEET_C} cameras x {FLEET_LENGTH} "
+          f"frames, starts staggered a tick apart: {tick_med:.3f} ms/tick "
+          f"(synchronised median), {FLEET_C * 1e3 / tick_med:.1f} frames/s aggregate; "
+          f"time_device_tick {tick_ms:.3f} ms batched (one ensemble forward over "
+          f"{FLEET_C} x {fleet.K} cubes), {loop_ms:.3f} ms as a per-camera loop; each "
+          f"camera against a StreamingScorer on its video max |diff| / max |score| "
+          f"{fleet_rel:.3e} (bound {SERVE_REL_TOL})", flush=True)
+    check(np.isfinite(rows).all() and fleet_rel <= SERVE_REL_TOL,
+          f"fleet against single scorers: {fleet_rel}")
+
+    # (g) the live fleet: one FlowNet2 forward over the cameras' pairs a tick
+    lf = MultiCameraFlowScorer.from_model(model, n_cameras=FLEET_C, flow_net=flow_net,
+                                          flow_model_hw=FLOW_HW, device="cuda")
+    conv3, hook = conv3_hook(flow_net, FLEET_C)
+
+    def live_inputs(t):  # every camera at frame t of its video
+        return (np.stack([fleet_videos[c][0][t] for c in range(FLEET_C)]),
+                [fleet_videos[c][1][t] for c in range(FLEET_C)])
+
+    def live_fleet():
+        rows, lat = [], []
+        lf.start_video()
+        for t in range(FLEET_LENGTH):
+            f, b = live_inputs(t)
+            t0 = time.perf_counter()
+            out = lf.push_tick(f, b)
+            torch.cuda.synchronize()
+            if t != 1:
+                lat.append((time.perf_counter() - t0) * 1e3)
+            if out is not None:
+                rows.append(out)
+        rows.append(lf.end_video())
+        return np.asarray(rows + lf.drain(), np.float64), lat
+
+    torch.cuda.reset_peak_memory_stats()
+    (lrows, llat), lf_launches = k1_counted(live_fleet)
+    peak = torch.cuda.max_memory_allocated()
+    hook.remove()
+    lf_err = check_fwd(*(a.contiguous() for a in conv3))
+    (singles, single_launches) = k1_counted(lambda: [
+        push_stream(flow_scorer(), [fleet_videos[c]])[0] for c in range(FLEET_C)])
+    lf_rel = max(rel_diff(lrows[:, c], singles[c]) for c in range(FLEET_C))
+    # each camera's flow in the batch against its pair alone
+    f0, _ = live_inputs(0)
+    f1, b1 = live_inputs(1)
+    pairs = torch.from_numpy(np.stack([f0, f1], 1)).cuda()
+    with torch.no_grad():
+        batch_flow = lf._live_flow(pairs)
+        alone = torch.cat([lf._live_flow(pairs[c:c + 1]) for c in range(FLEET_C)])
+    flow_rel = float((batch_flow - alone).abs().max() / alone.abs().max())
+    live_tick_ms = lf.time_device_tick(f1, b1)
+    live_med = med(llat[1:])
+    print(f"serving-surface: (g) MultiCameraFlowScorer, {FLEET_C} cameras x "
+          f"{FLEET_LENGTH} frames: {live_med:.3f} ms/tick (synchronised median of live "
+          f"ticks), {FLEET_C * 1e3 / live_med:.1f} frames/s aggregate; "
+          f"time_device_tick {live_tick_ms:.3f} ms; peak device memory "
+          f"{peak / 2**20:.1f} MiB; K1 launches {lf_launches} for {FLEET_LENGTH} live "
+          f"ticks (single-camera runs {single_launches}); K1 on a tick's conv3 features "
+          f"{tuple(conv3[0].shape)} max_abs_err={lf_err:.3e}; each camera against a "
+          f"FlowStreamingScorer on its video {lf_rel:.3e} (bound {SERVE_REL_TOL}); "
+          f"batched flow against each pair alone {flow_rel:.3e} of the largest |flow| "
+          f"(bound {LIVE_FLOW_TOL})", flush=True)
+    check(lrows.shape == (FLEET_LENGTH, FLEET_C) and np.isfinite(lrows).all(),
+          f"live fleet scores {lrows.shape}")
+    check(lf_launches == FLEET_LENGTH, f"live fleet K1 launches {lf_launches}")
+    check(single_launches == FLEET_C * FLEET_LENGTH, f"K1 launches {single_launches}")
+    check(lf_rel <= SERVE_REL_TOL, f"live fleet against single scorers: {lf_rel}")
+    check(flow_rel <= LIVE_FLOW_TOL, f"batched flow against single: {flow_rel}")
+    return dict(launches=(ref_launches + many_launches + probe_launches + lf_launches
+                          + single_launches),
+                fwd_err=max(hook_err, lf_err), flow_net=flow_net)
+
+
+def serve_cli(argv) -> str:
+    """cli.main(argv), which must return 0; its standard output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    check(rc == 0, f"{argv} returned {rc}")
+    return out
+
+
+def serving_cli_phase(ts: dict, flow_net) -> int:
+    """`serve` through cli.main on phase 7's workspace (module docstring,
+    phase 9, h); returns K1's launches there. `ts`: what phase 7
+    returned; flow_net: phase 3's FlowNet2 (seed 0, calc-flow's)."""
+    cfg, base = TS_CFG, str(TS_BASE)
+    ini = TS_BASE / "serve.cfg"
+    ini.write_text(
+        f"[shared_parameters]\ndataset_name = {cfg.dataset_name}\n"
+        f"[{cfg.dataset_name}]\npatch_size = {cfg.fore.patch_size}\n"
+        f"[SelfComplete]\nnf = {cfg.model.nf}\ncontext_frame_num = "
+        f"{cfg.model.context_frame_num}\ncontext_of_num = {cfg.model.context_of_num}\n"
+        f"useFlow = {cfg.model.use_flow}\n")
+    common = ["serve", "--config", str(ini), "--base", base]
+    out, wall = timed(lambda: serve_cli(common))
+    auroc = float(re.search(r"frame-level AUROC \(streamed\): ([\d.]+)", out)[1])
+    print(f"serving-cli: streamed AUROC {auroc:.4f} against phase 7's test "
+          f"{ts['auroc']:.6f} (bound {STREAM_AUROC_TOL}), {wall:.1f} s", flush=True)
+    check(abs(auroc - ts["auroc"]) <= STREAM_AUROC_TOL, f"streamed AUROC {auroc}")
+    n0 = int(runner.load_split(cfg, base, "test").index.video_lengths[0])
+    n_live, n_fleet = min(CLI_LIVE_FRAMES, n0), min(CLI_FLEET_FRAMES, n0)
+    (_, wall), live_launches = k1_counted(lambda: timed(lambda: serve_cli(
+        common + ["--live-flow", "--frames", str(n_live)])))
+    (out, wall_f), fleet_launches = k1_counted(lambda: timed(lambda: serve_cli(
+        common + ["--cameras", str(FLEET_C), "--live-flow", "--frames", str(n_fleet)])))
+    spread, peak = (float(x) for x in re.search(
+        r"spread ([\d.e+-]+) \(max \|score\| ([\d.e+-]+)\)", out).groups())
+    print(f"serving-cli: --live-flow {n_live} frames {wall:.1f} s, K1 launches "
+          f"{live_launches}; --cameras {FLEET_C} --live-flow {n_fleet} frames "
+          f"{wall_f:.1f} s, K1 launches {fleet_launches}, spread / max |score| "
+          f"{spread / peak:.3e} (bound {SERVE_REL_TOL})", flush=True)
+    # one per live push or tick: all but the second, plus the tail
+    check(live_launches == n_live and fleet_launches == n_fleet,
+          f"CLI K1 launches {live_launches}, {fleet_launches}")
+    check(spread <= SERVE_REL_TOL * peak, f"cross-camera spread {spread} of {peak}")
+
+    # live flow over the first test video against phase 7's offline scores
+    data = runner.load_split(cfg, base, "test")
+    video = ([np.asarray(data.frames[t]) for t in range(n0)], data.boxes[:n0])
+    sc = FlowStreamingScorer.from_model(load_vad_model(runner.model_path(cfg, base)),
+                                        flow_net=flow_net, device="cuda")
+    (live, _, _), launches = k1_counted(lambda: push_stream(sc, [video]))
+    rel = rel_diff(live, ts["frame_scores"][:n0])
+    print(f"serving-cli: FlowStreamingScorer over test video 1 ({n0} frames) against "
+          f"phase 7's offline frame scores (calc-flow's tree) max |diff| / max |score| "
+          f"{rel:.3e} (bound {LIVE_OFFLINE_TOL}); K1 launches {launches}", flush=True)
+    check(rel <= LIVE_OFFLINE_TOL and launches == n0,
+          f"live flow against offline: {rel}, {launches} launches")
+    return live_launches + fleet_launches + launches
 
 
 def main() -> int:
@@ -1687,7 +2135,7 @@ def main() -> int:
     flow_net = make_flownet2(SEED, device="cuda")
     n_params = sum(p.numel() for p in flow_net.parameters())
     check(n_params == 162_518_834, f"FlowNet2 has {n_params} parameters")
-    model = make_model(nf=32, patch=32, seed=SEED + 1)
+    model = make_model(**SERVE_MODEL)
     videos = make_stream(FRAME_HW, VIDEO_LENGTHS, seed=SEED + 2)
     scorer = FlowStreamingScorer.from_model(
         model, flow_net=flow_net, flow_model_hw=FLOW_HW, device="cuda")
@@ -1733,7 +2181,7 @@ def main() -> int:
     # the other half of a live push: STC + the ensemble over the padded box set
     win_t, owin_t = scorer._indices(
         (np.arange(scorer.R), scorer._rlen), (np.zeros(scorer.R_of), scorer.R_of))
-    boxes_pad, _ = scorer._pad_boxes(videos[0][1][0])
+    boxes_pad = torch.from_numpy(scorer._pad_boxes(videos[0][1][0])[0]).cuda()
     with torch.no_grad():
         flow_ms = cuda_ms(lambda: flow_net(pair), reps=10)
         score_ms = cuda_ms(
@@ -1782,19 +2230,27 @@ def main() -> int:
 
     # -- dataset-scale phase: bf16, resident, segmented, pixel criterion -----
     dataset_scale_phase(ts)
+    t_phase = phase_done("dataset-scale", t_phase)
+
+    # -- serving-surface phase: push_many, probes, bf16, fleets, serve CLI ---
+    surf = serving_surface_phase()
+    cli_launches = serving_cli_phase(ts, surf["flow_net"])
+    surf_launches = surf["launches"] + cli_launches
     del ts
-    phase_done("dataset-scale", t_phase)
+    shutil.rmtree(TS_BASE, ignore_errors=True)
+    phase_done("serving-surface", t_phase)
 
     rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"],
-                               calc["fwd_err"]))
+                               calc["fwd_err"], surf["fwd_err"]))
     rec_bwd.update(max_abs_err=max(rec_bwd["max_abs_err"], train["bwd_err"]))
     k1 = (launches.get("correlation", 0) + train["launches"]["correlation"]
-          + ft_launches["correlation"] + calc["launches"] + ts_launches)
+          + ft_launches["correlation"] + calc["launches"] + ts_launches
+          + surf_launches)
     k2 = train["launches"]["correlation_bwd"] + ft_launches["correlation_bwd"]
     print(f"launches on the main paths: K1 {k1} (serving {launches.get('correlation', 0)}, "
           f"FlowNetC training {train['launches']['correlation']}, FlowNet2 steps "
           f"{ft_launches['correlation']}, calc-flow {calc['launches']}, two-stream "
-          f"calc-flow {ts_launches}); K2 {k2}")
+          f"calc-flow {ts_launches}, serving surface {surf_launches}); K2 {k2}")
     # no single PyTorch call computes the cost volume or its gradients
     record = {"kernels": [
         {"name": "correlation_fwd", "route": "cuda",

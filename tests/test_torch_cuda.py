@@ -345,3 +345,127 @@ def test_segmented_scoring_equals_resident_on_card(cuda):
     assert np.isfinite(want).all() and (want > -1e5).any()
     for got in (seg, whole, routed):
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def _serving_model(use_flow=True):
+    """A seeded 5raw1of (or raw-only) nf=4, patch-16 VadModel, one block."""
+    from vec_vad_torch.config import CompletionConfig, ForegroundConfig, PipelineConfig
+    from vec_vad_torch.models.completion import init_completion_state, make_completion_net
+    from vec_vad_torch.pipeline import TrainedBlock, VadModel
+
+    cfg = PipelineConfig(dataset_name="UCSDped2",
+                         fore=ForegroundConfig(patch_size=16, max_boxes_per_frame=8),
+                         model=CompletionConfig(nf=4, context_of_num=0, use_flow=use_flow))
+    sd = init_completion_state(make_completion_net(cfg.model, "cpu"), seed=3)
+    rng = np.random.default_rng(3)
+    block = TrainedBlock(sd, rng.normal(100.0, 10.0, 64).astype(np.float32),
+                         rng.normal(10.0, 1.0, 64).astype(np.float32) if use_flow else None)
+    return VadModel(cfg=cfg, blocks={(0, 0, 0): block})
+
+
+def _serving_stream(n=12, seed=5):
+    ds, _, flow = _split(seed)
+    return ds.test_frames[:n], ds.test_boxes[:n], flow[:n]
+
+
+def _push_all(scorer, frames, boxes, flows):
+    scorer.start_video()
+    out = [scorer.push(f, b, flow=fl) for f, b, fl in zip(frames, boxes, flows)]
+    return np.asarray([s for s in out if s is not None] + scorer.drain())
+
+
+def _rel(got, want):
+    return np.abs(np.asarray(got) - want).max() / np.abs(want).max()
+
+
+# two runs of the same f32 scoring on the card, relative to the largest
+# score: cuDNN's default algorithms may sum in another order from one call
+# to the next (6.5e-8 seen on an H100, chip_smoke.py RERUN_REL_TOL)
+RERUN_REL = 1e-6
+
+
+@pytest.mark.cuda
+def test_serving_push_many_and_pipelining_on_card(cuda):
+    """StreamingScorer on the card: push_many in batches of 4 equals 12
+    pushes within 2e-4 of the largest score; pipeline_depth 2 equals
+    depth 0, and with both TF32 flags on the f32 scores equal the
+    flags-off run's (both up to a rerun's last bit) and the flags are on
+    again after."""
+    from vec_vad_torch.serve import StreamingScorer
+
+    model = _serving_model()
+    frames, boxes, flows = _serving_stream()
+    want = _push_all(StreamingScorer.from_model(model, device=cuda), frames, boxes, flows)
+    sc = StreamingScorer.from_model(model, device=cuda)
+    sc.start_video()
+    many = sum((sc.push_many(frames[lo:lo + 4], boxes[lo:lo + 4], flows[lo:lo + 4])
+                for lo in range(0, 12, 4)), [])
+    assert np.isfinite(want).all() and _rel(many, want) <= 2e-4
+    piped = StreamingScorer.from_model(model, pipeline_depth=2, device=cuda)
+    assert _rel(_push_all(piped, frames, boxes, flows), want) <= RERUN_REL
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = _push_all(StreamingScorer.from_model(model, device=cuda), frames, boxes, flows)
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    assert flags == (True, True)
+    assert _rel(on, want) <= RERUN_REL
+
+
+@pytest.mark.cuda
+def test_fleet_tick_matches_single_scorers_on_card(cuda):
+    """MultiCameraScorer at C = 3 on the card, camera c starting its video
+    at tick c: each camera's scores within 2e-4 of the largest of a
+    StreamingScorer on its video."""
+    from vec_vad_torch.serve import MultiCameraScorer, StreamingScorer
+
+    model = _serving_model()
+    frames, boxes, flows = _serving_stream(16)
+    C, n = 3, 8
+    feeds = [(frames[4 * c:4 * c + n], boxes[4 * c:4 * c + n], flows[4 * c:4 * c + n])
+             for c in range(C)]
+    fleet = MultiCameraScorer.from_model(model, n_cameras=C, device=cuda)
+    fleet.start_video()
+    rows = []
+    for t in range(C - 1 + n):
+        if t < C:
+            fleet.start_video(camera=t)
+        j = [min(max(t - c, 0), n - 1) for c in range(C)]
+        rows.append(fleet.push_tick(np.stack([feeds[c][0][j[c]] for c in range(C)]),
+                                    [feeds[c][1][j[c]] for c in range(C)],
+                                    flows=np.stack([feeds[c][2][j[c]] for c in range(C)])))
+    rows = np.asarray(rows)
+    single = StreamingScorer.from_model(model, device=cuda)
+    for c in range(C):
+        assert _rel(rows[c:c + n, c], _push_all(single, *feeds[c])) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_live_fleet_launches_k1_once_a_tick(cuda, full_f32):
+    """MultiCameraFlowScorer at C = 2 over FlowNet2 on the card: one K1
+    launch a live tick (one FlowNet2 forward over both cameras' pairs;
+    none at the ring-only second tick) and the tail, and each camera's
+    scores within 2e-4 of a FlowStreamingScorer's on its video."""
+    from vec_vad_torch.serve import FlowStreamingScorer, MultiCameraFlowScorer
+
+    model = _serving_model()
+    frames, boxes, _ = _serving_stream(10)
+    net = make_flownet2(0, device=cuda)
+    fleet = MultiCameraFlowScorer.from_model(model, n_cameras=2, flow_net=net,
+                                             device=cuda)
+    feeds = [(frames[:5], boxes[:5]), (frames[5:], boxes[5:])]
+    kernels.reset_launch_counts()
+    fleet.start_video()
+    rows = [fleet.push_tick(np.stack([feeds[0][0][t], feeds[1][0][t]]),
+                            [feeds[0][1][t], feeds[1][1][t]]) for t in range(5)]
+    rows.append(fleet.end_video())
+    assert kernels.launch_counts["correlation"] == 5  # ticks 0, 2, 3, 4 and the tail
+    assert rows[1] is None
+    rows = np.asarray([r for r in rows if r is not None])
+    for c in range(2):
+        sc = FlowStreamingScorer.from_model(model, flow_net=net, device=cuda)
+        sc.start_video()
+        want = [sc.push(f, b) for f, b in zip(*feeds[c])] + [sc.end_video()]
+        assert _rel(rows[:, c], np.asarray([s for s in want if s is not None])) <= 2e-4

@@ -686,8 +686,12 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
 
 def test_left_out_routes_refuse_by_name(tmp_path):
     """What the port leaves out raises and names its ROADMAP item: the
-    parallel GridTrainer (item 2.8) and computing boxes without a bbox
-    fixture (item 4.1)."""
+    parallel GridTrainer (item 2.8), computing boxes without a bbox
+    fixture (item 4.1), a fleet sharded over a device mesh (item 5) and
+    `serve --motion` (item 4.3)."""
+    from vec_vad_torch import cli as t_cli
+    from vec_vad_torch.serve import MultiCameraFlowScorer, MultiCameraScorer
+
     jcfg, tcfg = _configs()
     cubes = t_pipe.CubeSet(_cubes(0, 4), None, np.zeros(4, np.int64),
                            np.zeros((4, 4), np.float32), np.zeros((4, 2), np.int64),
@@ -703,3 +707,10 @@ def test_left_out_routes_refuse_by_name(tmp_path):
                            "bboxes_train_obj_det_with_motion.npy"))
     with pytest.raises(FileNotFoundError, match="item 4.1"):
         t_runner.load_split(tcfg, ws, "train")
+    for fleet, kw in ((MultiCameraScorer, {}),
+                      (MultiCameraFlowScorer, {"flow_net": None})):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            fleet(tcfg, {}, (0.0, 1.0), n_cameras=2, mesh=object(), device="cpu",
+                  **kw)
+    with pytest.raises(NotImplementedError, match="item 4.3"):
+        t_cli.main(["serve", "--motion", "--base", ws, "--device", "cpu"])

@@ -1,11 +1,12 @@
 """The port's command line (vec_vad_tpu/cli.py): `train`, `test`,
-`calc-flow`, `flow-train` and `flow-infer`, with vec_vad_tpu's flags and
-messages plus `--device` (the card by default; `--device cpu` runs the
-plain PyTorch path).
+`calc-flow`, `serve`, `flow-train` and `flow-infer`, with vec_vad_tpu's
+flags and messages plus `--device` (the card by default; `--device cpu`
+runs the plain PyTorch path).
 
     python -m vec_vad_torch train --config config.cfg --base .
     python -m vec_vad_torch test --config config.cfg --base .
     python -m vec_vad_torch calc-flow --config config.cfg --base .
+    python -m vec_vad_torch serve --config config.cfg --base . [--frames N]
     python -m vec_vad_torch flow-train --data-root TREE --workdir WD \\
         --net FlowNetC --loss multiscale --norm L1
     python -m vec_vad_torch flow-infer --data-root TREE --workdir WD
@@ -14,7 +15,10 @@ With `useFlow = True` in the config and the tree calc-flow wrote, train
 and test run the two-stream model. `--resident` extracts a split on the
 device (no cube cache) and test's `--pixel-criterion` adds the
 pixel-level AUROC from the dataset's pixel GT (avenue's .mat files; the
-ped layout's .bmp masks need cv2).
+ped layout's .bmp masks need cv2). `serve` streams the test split through
+the online scorers (`--live-flow`: flow computed in the loop;
+`--cameras C`: a fleet); its `--motion` modes are ROADMAP.md Queue 1 item
+4.3's and refuse.
 calc-flow has no `--no-mesh`: the JAX package's data-parallel mesh is not
 ported. The other subcommands of vec_vad_tpu are not ported yet
 (ROADMAP.md).
@@ -107,6 +111,196 @@ def cmd_calc_flow(args) -> int:
         chunk=args.chunk or None, flow_dtype=args.flow_dtype,
         device=args.device,
     )
+    return 0
+
+
+def _build_live_flow(args, device):
+    """FlowNet2 for --live-flow on `device` (a checkpoint's weights, or
+    the seed-0 random init run_calc_flow uses, so a random-init live flow
+    equals calc-flow's) and the scorer's --flow-dtype keyword."""
+    import torch
+
+    from vec_vad_torch.models.flownet import load_flownet_checkpoint, make_flownet2
+
+    net = make_flownet2(0, device)
+    if args.flow_checkpoint:
+        report = load_flownet_checkpoint(net, args.flow_checkpoint)
+        print(f"loaded flow checkpoint: {len(report['matched'])} tensors")
+    else:
+        print("WARNING: no --flow-checkpoint — random-init FlowNet2")
+    fdt = torch.bfloat16 if args.flow_dtype == "bfloat16" else torch.float32
+    return net, {"flow_compute_dtype": fdt}
+
+
+def _serve_fleet(cfg, model, data, args, live: bool, device) -> int:
+    """`serve --cameras C`: every camera streams the test split's first
+    video in lockstep, a tick at a time. Identical per-camera inputs
+    double as a cross-camera consistency check; reports per-tick latency
+    and aggregate fleet fps."""
+    import time
+
+    import numpy as np
+
+    from vec_vad_torch.serve import MultiCameraFlowScorer, MultiCameraScorer
+
+    C = int(args.cameras)
+    ln = int(data.index.video_lengths[0])
+    n = ln if args.frames <= 0 else min(args.frames, ln)
+
+    if live:
+        fnet, fkw = _build_live_flow(args, device)
+        scorer = MultiCameraFlowScorer.from_model(
+            model, n_cameras=C, flow_net=fnet, device=device, **fkw)
+    else:
+        scorer = MultiCameraScorer.from_model(model, n_cameras=C, device=device)
+
+    # scene routing: the first test video's scene row by default;
+    # --camera-scenes gives each camera its own (test.py:282
+    # model_set[scene_idx-1] semantics, per camera)
+    scene_idx = data.index.scene_idx
+    default_scene = int(scene_idx[0]) if scene_idx is not None else 1
+    if args.camera_scenes:
+        scenes = [int(s) for s in str(args.camera_scenes).split(",")]
+        if len(scenes) == 1:
+            scenes = scenes * C
+        if len(scenes) != C:
+            raise SystemExit(
+                f"--camera-scenes needs {C} values (or one), got {len(scenes)}"
+            )
+    else:
+        scenes = [default_scene] * C
+    if live:
+        scorer.start_video(scene=scenes)  # fleet-wide video boundaries
+    else:
+        for c, s in enumerate(scenes):
+            scorer.start_video(camera=c, scene=s)
+    rows, lat = [], []
+    for t in range(n):
+        frame = np.asarray(data.frames[t])
+        frames = np.broadcast_to(frame, (C,) + frame.shape)
+        boxes = [data.boxes[t]] * C
+        t0 = time.perf_counter()
+        if live:
+            out = scorer.push_tick(frames, boxes)
+        else:
+            flows = None
+            if scorer.use_flow and data.flow is not None:
+                flow = np.asarray(data.flow[t])
+                flows = np.broadcast_to(flow, (C,) + flow.shape)
+            out = scorer.push_tick(frames, boxes, flows=flows)
+        lat.append(time.perf_counter() - t0)
+        if out is not None:
+            rows.append(out)
+    if live:
+        out = scorer.end_video()
+        if out is not None:
+            rows.append(out)
+    rows.extend(scorer.drain())
+    lat = np.array(lat[2:]) if len(lat) > 2 else np.array(lat)
+    med = float(np.median(lat)) * 1e3
+    rows = np.asarray(rows, np.float32)
+    spread = float(np.max(np.abs(rows - rows[:, :1]))) if rows.size else 0.0
+    peak = float(np.max(np.abs(rows))) if rows.size else 0.0
+    print(
+        f"fleet of {C} cameras, {len(lat)} timed ticks: median "
+        f"{med:.1f} ms/tick = {C * 1000.0 / max(med, 1e-9):.1f} fps "
+        f"aggregate; cross-camera score spread {spread:.2e} "
+        f"(max |score| {peak:.4e})"
+    )
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Online serving: stream the test split frame by frame
+    through serve.StreamingScorer (or its live-flow / fleet forms) and
+    report steady-state latency, plus the streamed AUROC when the whole
+    split is scored (equal to offline `test`'s up to summation order)."""
+    import time
+
+    import numpy as np
+
+    from vec_vad_torch.device import resolve_device
+    from vec_vad_torch.runner import load_split, model_path
+    from vec_vad_torch.runtime.artifacts import load_vad_model
+    from vec_vad_torch.serve import FlowStreamingScorer, StreamingScorer
+
+    if args.motion:
+        raise NotImplementedError(
+            "serve --motion (boxes computed in the serving loop) is not "
+            "ported (ROADMAP.md Queue 1 item 4.3)"
+        )
+    cfg = _load_cfg(args)
+    live = bool(args.live_flow)
+    if live and not cfg.model.use_flow:
+        # fail BEFORE the FlowNet2 build or checkpoint load
+        raise SystemExit(
+            "--live-flow needs a two-stream model (useFlow=True); "
+            "this config is raw-only"
+        )
+    device = resolve_device(args.device)
+    model = load_vad_model(model_path(cfg, args.base))
+    data = load_split(cfg, args.base, "test")
+    if int(args.cameras) > 1:
+        return _serve_fleet(cfg, model, data, args, live, device)
+    if live:
+        fnet, fkw = _build_live_flow(args, device)
+        scorer = FlowStreamingScorer.from_model(model, flow_net=fnet,
+                                                device=device, **fkw)
+    else:
+        scorer = StreamingScorer.from_model(model, device=device)
+
+    n = data.index.total_frames if args.frames <= 0 else min(
+        args.frames, data.index.total_frames
+    )
+    scores, lat = [], []
+    i = 0
+    scene_idx = data.index.scene_idx
+    for ln in data.index.video_lengths:
+        if i >= n:
+            break
+        # route each video through its own scene's block row, as the
+        # offline path routes per frame
+        scorer.start_video(
+            scene=int(scene_idx[i]) if scene_idx is not None else 1
+        )
+        for _ in range(int(ln)):
+            if i >= n:
+                break
+            frame = np.asarray(data.frames[i])
+            t0 = time.perf_counter()
+            if live:
+                s = scorer.push(frame, data.boxes[i])
+            else:
+                flow = (
+                    np.asarray(data.flow[i])
+                    if scorer.use_flow and data.flow is not None
+                    else None
+                )
+                s = scorer.push(frame, data.boxes[i], flow=flow)
+            lat.append(time.perf_counter() - t0)
+            if s is not None:
+                scores.append(s)
+            i += 1
+        if live:
+            s = scorer.end_video()
+            if s is not None:
+                scores.append(s)
+    scores.extend(scorer.drain())
+    lat = np.array(lat[2:]) if len(lat) > 2 else np.array(lat)  # drop warm-up
+    print(
+        f"streamed {i} frames: median latency {np.median(lat) * 1e3:.1f} ms "
+        f"({1.0 / max(np.median(lat), 1e-9):.1f} fps steady-state)"
+    )
+    if args.frames <= 0 and len(scores) == data.index.total_frames:
+        from vec_vad_torch.data.readers import load_frame_labels
+        from vec_vad_torch.eval.metrics import evaluate_scores
+
+        root = os.path.join(args.base, cfg.raw_dataset_dir, cfg.dataset_name)
+        labels = load_frame_labels(cfg.dataset_name, root, data.index)
+        print(
+            "frame-level AUROC (streamed): "
+            f"{evaluate_scores(np.array(scores), labels).roc_auc:.4f}"
+        )
     return 0
 
 
@@ -358,6 +552,50 @@ def main(argv=None) -> int:
     )
     _add_device(p)
     p.set_defaults(fn=cmd_calc_flow)
+
+    p = sub.add_parser(
+        "serve",
+        help="online streaming scorer over the test split "
+        "(one frame at a time)",
+    )
+    _add_common(p)
+    p.add_argument(
+        "--frames", type=int, default=0,
+        help="stream only the first N frames (0 = whole split + AUROC)",
+    )
+    p.add_argument(
+        "--live-flow", action="store_true",
+        help="compute optical flow on the device inside each push "
+        "(no precomputed flow tree needed; two-stream models only)",
+    )
+    p.add_argument(
+        "--cameras", type=int, default=1,
+        help="fleet mode: C cameras stream the first test video in "
+        "lockstep, scored together a tick (MultiCameraScorer)",
+    )
+    p.add_argument(
+        "--flow-checkpoint", default=None,
+        help="FlowNet2 torch checkpoint for --live-flow "
+        "(random-init with a warning when absent)",
+    )
+    p.add_argument(
+        "--camera-scenes", default=None,
+        help="fleet mode: comma-separated per-camera scene rows "
+        "(len --cameras, or one value for all; default: the first test "
+        "video's scene)",
+    )
+    p.add_argument(
+        "--motion", action="store_true",
+        help="boxes computed in the serving loop: not ported "
+        "(ROADMAP.md Queue 1 item 4.3), refuses",
+    )
+    p.add_argument(
+        "--flow-dtype", choices=("float32", "bfloat16"), default="float32",
+        help="--live-flow FlowNet forward dtype (scores shift by bf16 "
+        "rounding)",
+    )
+    _add_device(p)
+    p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser(
         "flow-train",

@@ -140,7 +140,9 @@ class SelfCompletionNet(nn.Module):
             # package (a slot fires from at most one position)
             fpos = self.flow_positions
             och = self.of_channels
-            flow_in = erased[[positions.index(k) for k, _ in fpos]]
+            # stacked views: a list index would be copied to the device,
+            # which waits for the stream, on every forward
+            flow_in = torch.stack([erased[positions.index(k)] for k, _ in fpos])
             of_out = _members_out(
                 self.of_unets(_members_in(flow_in), train, batch_weight),
                 len(fpos))

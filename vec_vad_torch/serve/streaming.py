@@ -6,12 +6,18 @@ Per push: the frame goes into a ring tensor on the device, the frame's
 its padded box set, every block's completion ensemble scores them, and
 one (B*K + K,) result vector (block scores, then motion magnitudes) comes
 back to the host, where grid routing reduces it to the frame score
-(test.py:282-357 semantics). With pipeline_depth d, push(frame_t) returns
-the score of frame t-d: torch queues the device work asynchronously and
-only the host reduction waits.
+(test.py:282-357 semantics). Scoring runs in `compute_dtype` (float32 with
+TF32 off, or bfloat16).
 
-Left for a later slice: push_many (micro-batching), time_device_step,
-the fleet scorers and a bf16 scoring dtype.
+`push_many` scores k frames of the current video in one ensemble forward
+over k*K cubes, gathering each frame's window from a staging copy of the
+ring followed by the batch (writing all k frames into the R-slot ring
+first would overwrite windows the batch's earlier frames still need), and
+downloads the k results once. With pipeline_depth d, push(frame_t)
+returns the score of frame t-d: each step's uploads are non-blocking and
+its result's download starts when the step is queued, so the host waits
+for step t-d's copy only. `time_device_step` times the device step alone
+on clones of the rings (serve._common._time_device_chain).
 """
 
 from __future__ import annotations
@@ -23,11 +29,18 @@ import numpy as np
 import torch
 
 from vec_vad_torch.config import PipelineConfig
-from vec_vad_torch.device import resolve_device
+from vec_vad_torch.device import full_f32, resolve_device, resolve_dtype
+from vec_vad_torch.infer import _forward_fn
 from vec_vad_torch.models.completion import make_completion_net
 from vec_vad_torch.ops.stc import cube_to_input, extract_stc, flow_magnitude
 from vec_vad_torch.score.scoring import BIG_NUMBER, degenerate_boxes
-from vec_vad_torch.serve._common import _predict_window
+from vec_vad_torch.serve._common import (
+    _download_async,
+    _host_result,
+    _predict_window,
+    _time_device_chain,
+    _upload,
+)
 from vec_vad_torch.utils.blocks import calc_block_idx
 
 
@@ -53,6 +66,7 @@ class StreamingScorer:
         *,
         blocks: Optional[Dict[tuple, tuple]] = None,
         max_boxes: Optional[int] = None,
+        compute_dtype=torch.float32,
         big_number: float = BIG_NUMBER,
         pipeline_depth: int = 0,
         gray_stream: bool = False,
@@ -63,10 +77,16 @@ class StreamingScorer:
         grid at block key (0, 0, 0)). Grid form: `blocks` maps
         (scene-1, h, w) -> (state_dict, (mu_r, sd_r, mu_o, sd_o[, of_on])).
 
-        gray_stream: frames are (H, W) uint8, replicated to 3 channels on
-        the device (cv2.imread's gray->BGR). route_hw: the geometry the
-        model's cubes were extracted at (defaults to the dataset table's),
-        which block routing must use."""
+        compute_dtype: the ensemble's dtype (a torch dtype or its name):
+        float32, run with TF32 off (device.full_f32), or bfloat16, with
+        the weights and running statistics cast once, the cubes cast
+        after their uint8 round trip and the errors summed in float32,
+        as the JAX package casts. gray_stream: frames are (H, W) uint8,
+        replicated to 3 channels on the device (cv2.imread's gray->BGR).
+        route_hw: the geometry the model's cubes were extracted at
+        (defaults to the dataset table's), which block routing must use.
+        pipeline_depth: see the module docstring; scores equal depth 0's
+        bit for bit."""
         mc = cfg.model
         if mc.border_mode != "predict":
             raise ValueError(
@@ -75,6 +95,7 @@ class StreamingScorer:
             )
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.compute_dtype = resolve_dtype(compute_dtype)
         self.big_number = float(big_number)
         self.K = int(max_boxes or cfg.fore.max_boxes_per_frame)
         self.P = int(cfg.fore.patch_size)
@@ -94,11 +115,12 @@ class StreamingScorer:
         self._keys = sorted(blocks)
         self.B = len(self._keys)
         self._kidx = {k: i for i, k in enumerate(self._keys)}
-        self.nets = []
-        for k in self._keys:
-            net = make_completion_net(mc, self.device)
-            net.load_state_dict(blocks[k][0])
-            self.nets.append(net)
+        # one eval forward per block, in compute_dtype (infer._forward_fn)
+        self._forwards = [
+            _forward_fn(make_completion_net(mc, self.device), blocks[k][0],
+                        self.compute_dtype)
+            for k in self._keys
+        ]
         # stats rows (mu_r, sd_r, mu_o, sd_o, of_on); a 4-tuple means
         # of_on=1, and of_on=0 marks a block trained without a flow stream
         # (its score is raw-only, like the offline fuse_scores degradation)
@@ -119,7 +141,8 @@ class StreamingScorer:
         self._scene = 1
         self.pipeline_depth = int(pipeline_depth)
         self.gray_stream = bool(gray_stream)
-        self._pending: deque = deque()  # in flight: (out, boxes, nb, scene, skip_mag)
+        # in flight: (result handle, boxes, nb, scene, skip_mag)
+        self._pending: deque = deque()
 
     # -- constructors ---------------------------------------------------
 
@@ -158,50 +181,77 @@ class StreamingScorer:
         """Upload small index groups as ONE int64 tensor, each group clamped
         into its ring first (jnp.take(..., mode='clip') semantics); returns
         the per-group device slices. groups: (indices, ring_length)."""
-        parts = [np.clip(np.asarray(ix, np.int64), 0, n - 1)
+        parts = [np.clip(np.asarray(ix, np.int64).reshape(-1), 0, n - 1)
                  for ix, n in groups]
-        flat = torch.as_tensor(np.concatenate(parts), device=self.device)
+        flat = _upload(np.concatenate(parts), self.device)
         return list(torch.split(flat, [p.size for p in parts]))
 
-    def _write_frame(self, slot: int, frame: np.ndarray) -> None:
-        t = torch.from_numpy(frame).to(self.device)
-        if self.gray_stream:
-            # cv2.imread replicates gray sources across BGR exactly
-            t = t.reshape(t.shape[0], t.shape[1], 1).expand(-1, -1, 3)
-        self._ring[slot] = t
+    def _color(self, t: torch.Tensor) -> torch.Tensor:
+        """Frames (..., H, W, 3), or (..., H, W) of a gray stream replicated
+        to 3 channels (cv2.imread's gray->BGR is an exact copy)."""
+        return t[..., None].expand(t.shape + (3,)) if self.gray_stream else t
 
-    def _score_from_rings(self, win, owin, boxes_pad) -> torch.Tensor:
-        """(B*K + K,) float32 on the device: block scores, then per-box
-        motion magnitudes (inf when no flow stream is served)."""
-        P, K = self.P, self.K
+    def _write_frame(self, slot: int, frame_t: torch.Tensor) -> None:
+        self._ring[slot] = self._color(frame_t)
+
+    def _score_windows(self, wd, owd, boxes) -> torch.Tensor:
+        """(k, B*K + K) float32 on the device from k gathered windows: per
+        frame its block scores, then its boxes' motion magnitudes (inf
+        when no flow stream is served). wd: (k, T, H, W, 3) uint8; owd:
+        (k, T_of, H, W, 2) float32 (None for a raw-only model); boxes:
+        (k, K, 4). One ensemble forward per block over the k*K cubes
+        (eval-mode BatchNorm: no row depends on another)."""
+        P, K, dt = self.P, self.K, self.compute_dtype
+        k = wd.shape[0]
         mc = self.cfg.model
-        boxes = torch.as_tensor(boxes_pad, device=self.device)
-        cubes = extract_stc(self._ring.index_select(0, win), boxes, P,
-                            quantize=True)
-        # uint8 round trip: bit-identical to the offline uint8 cube buffer
-        x = cube_to_input(cubes, scale=False).to(torch.uint8).float() / 255.0
-        if self.use_flow:
-            fcubes = extract_stc(self._flow_ring.index_select(0, owin), boxes,
-                                 P, quantize=False)
-            mag = flow_magnitude(fcubes)
-            x_of = cube_to_input(fcubes, scale=False)
-        else:
-            mag = torch.full((K,), float("inf"), device=self.device)
-            x_of = None
+        with full_f32(dt):
+            cubes = extract_stc(wd, boxes, P, quantize=True)  # (k, K, T, P, P, 3)
+            # uint8 round trip: bit-identical to the offline uint8 cube buffer
+            x = cube_to_input(cubes, scale=False).to(torch.uint8).to(dt) / 255.0
+            x = x.reshape((k * K,) + x.shape[2:])
+            if self.use_flow:
+                fcubes = extract_stc(owd, boxes, P, quantize=False)
+                mag = flow_magnitude(fcubes)  # (k, K)
+                x_of = cube_to_input(fcubes, scale=False).to(dt)
+                x_of = x_of.reshape((k * K,) + x_of.shape[2:])
+            else:
+                mag = torch.full((k, K), float("inf"), device=self.device)
+                x_of = None
 
-        scores = []
-        for net, st in zip(self.nets, self._stats):
-            out = net(x, x_of)
-            sc = torch.sum(torch.square(out.raw_out - out.raw_tgt),
-                           dim=(0, 2, 3, 4))
-            score = mc.w_raw * (sc - st[0]) / st[1]
-            if out.of_out is not None:
-                osc = torch.sum(torch.square(out.of_out - out.of_tgt),
-                                dim=(0, 2, 3, 4))
-                # st[4] gates blocks trained without a flow stream
-                score = score + st[4] * mc.w_of * (osc - st[2]) / st[3]
-            scores.append(score)
-        return torch.cat([torch.stack(scores).reshape(-1), mag])
+            scores = []
+            for forward, st in zip(self._forwards, self._stats):
+                out = forward(x, x_of)
+                sc = (out.raw_out - out.raw_tgt).float().square().sum(
+                    dim=(0, 2, 3, 4))
+                score = mc.w_raw * (sc - st[0]) / st[1]
+                if out.of_out is not None:
+                    osc = (out.of_out - out.of_tgt).float().square().sum(
+                        dim=(0, 2, 3, 4))
+                    # st[4] gates blocks trained without a flow stream
+                    score = score + st[4] * mc.w_of * (osc - st[2]) / st[3]
+                scores.append(score.reshape(k, K))
+            return torch.cat([torch.stack(scores, 1).reshape(k, -1), mag], 1)
+
+    def _score_from_rings(self, win_t, owin_t, boxes_t) -> torch.Tensor:
+        """(B*K + K,) for one frame whose window slots `win_t` / `owin_t`
+        are in the rings; boxes_t (K, 4) on the device."""
+        wd = self._ring.index_select(0, win_t)[None]
+        owd = (self._flow_ring.index_select(0, owin_t)[None]
+               if self.use_flow else None)
+        return self._score_windows(wd, owd, boxes_t[None])[0]
+
+    def _step(self, frame_t, flow_t, slot, of_slot, win_t, owin_t,
+              boxes_t) -> torch.Tensor:
+        """One push on the device, its inputs already there: the ring
+        writes (flow_t None on a flow-fusing model writes zero flow),
+        then the frame's scores."""
+        self._write_frame(slot, frame_t)
+        if self.use_flow:
+            if flow_t is None:
+                self._flow_ring[of_slot] = 0.0
+            else:
+                self._flow_ring[of_slot] = flow_t
+        return self._score_from_rings(win_t, owin_t, boxes_t)
 
     # -- host helpers ------------------------------------------------------
 
@@ -214,6 +264,16 @@ class StreamingScorer:
             raise ValueError("3-channel frame expected (or gray_stream=True)")
         return np.ascontiguousarray(frame)
 
+    def _norm_frames(self, frames) -> np.ndarray:
+        """A (n, H, W, 3) stack, or (n, H, W) for a gray stream."""
+        frames = np.asarray(frames, np.uint8)
+        if self.gray_stream:
+            if frames.ndim == 4:
+                frames = frames[..., 0]
+        elif frames.ndim != 4:
+            raise ValueError("(n, H, W, 3) frames expected (or gray_stream=True)")
+        return np.ascontiguousarray(frames)
+
     def _pad_boxes(self, boxes) -> Tuple[np.ndarray, int]:
         boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
         nb = boxes.shape[0]
@@ -223,11 +283,40 @@ class StreamingScorer:
         boxes_pad[:nb] = boxes
         return boxes_pad, nb
 
+    def _pad_many(self, boxes_list, n: int) -> Tuple[np.ndarray, List[int]]:
+        """(n, K, 4) padded boxes and the counts of n per-frame box sets."""
+        if len(boxes_list) != n:
+            raise ValueError(f"{len(boxes_list)} box sets for {n} frames")
+        pads = [self._pad_boxes(b) for b in boxes_list]
+        return np.stack([p for p, _ in pads]), [nb for _, nb in pads]
+
+    def _windows(self, pos: int, v0: int, ctx: int, n: int) -> np.ndarray:
+        """Ring slots of within-video frame `pos`'s window (ring length n)."""
+        return (v0 + _predict_window(pos, ctx)) % n
+
+    def _result_handle(self, out: torch.Tensor):
+        """The host side of a step's result: at depth 0 the synchronous
+        download; pipelined, a copy started now into pinned memory
+        (serve._common._download_async), waited on when it is finished."""
+        if self.pipeline_depth > 0:
+            return _download_async(out)
+        return out.cpu(), None
+
+    def _emit_rows(self, outs: torch.Tensor, metas) -> List[float]:
+        """Queue k results (rows of outs) with their (boxes_pad, nb,
+        skip_mag); returns the scores that leave the pipeline, in order."""
+        host, event = self._result_handle(outs)
+        scores = []
+        for j, (boxes_pad, nb, skip_mag) in enumerate(metas):
+            self._pending.append(((host[j], event), boxes_pad, nb,
+                                  self._scene, skip_mag))
+            if len(self._pending) > self.pipeline_depth:
+                scores.append(self._finish(*self._pending.popleft()))
+        return scores
+
     def _emit(self, out, boxes_pad, nb, skip_mag=False) -> Optional[float]:
-        self._pending.append((out, boxes_pad, nb, self._scene, skip_mag))
-        if len(self._pending) <= self.pipeline_depth:
-            return None  # pipeline still filling
-        return self._finish(*self._pending.popleft())
+        got = self._emit_rows(out[None], [(boxes_pad, nb, skip_mag)])
+        return got[0] if got else None  # None: the pipeline still fills
 
     # -- streaming API ---------------------------------------------------
 
@@ -236,6 +325,22 @@ class StreamingScorer:
         selects the scene row of the block grid (1-based)."""
         self._v0 = self._n_pushed
         self._scene = int(scene)
+
+    def _stage(self, frame, flow, boxes_pad):
+        """One push's host inputs on the device: (frame, flow or None,
+        ring slots, window indices, boxes)."""
+        pos = self._n_pushed - self._v0
+        slot = self._n_pushed % self._rlen
+        of_slot = self._n_pushed % self.R_of
+        win_t, owin_t = self._indices(
+            (self._windows(pos, self._v0, self.ctx, self._rlen), self._rlen),
+            (self._windows(pos, self._v0, self.ctx_of, self.R_of), self.R_of),
+        )
+        flow_t = None
+        if self.use_flow and flow is not None:
+            flow_t = _upload(np.asarray(flow, np.float32), self.device)
+        return (_upload(frame, self.device), flow_t, slot, of_slot, win_t,
+                owin_t, _upload(boxes_pad, self.device))
 
     @torch.no_grad()
     def push(self, frame: np.ndarray, boxes: np.ndarray,
@@ -248,26 +353,80 @@ class StreamingScorer:
         calls ago (None while the pipeline fills)."""
         frame = self._norm_frame(frame)
         self._ensure_rings(*frame.shape[:2])
-        pos = self._n_pushed - self._v0
         boxes_pad, nb = self._pad_boxes(boxes)
-        slot = self._n_pushed % self._rlen
-        win = (self._v0 + _predict_window(pos, self.ctx)) % self._rlen
-        owin = (self._v0 + _predict_window(pos, self.ctx_of)) % self.R_of
-        win_t, owin_t = self._indices((win, self._rlen), (owin, self.R_of))
-        skip_mag = False
-        self._write_frame(slot, frame)
-        if self.use_flow:
-            of_slot = self._n_pushed % self.R_of
-            if flow is None:
-                self._flow_ring[of_slot] = 0.0
-                skip_mag = True
-            else:
-                self._flow_ring[of_slot] = torch.as_tensor(
-                    np.asarray(flow, np.float32), device=self.device
-                )
-        out = self._score_from_rings(win_t, owin_t, boxes_pad)
+        out = self._step(*self._stage(frame, flow, boxes_pad))
         self._n_pushed += 1
-        return self._emit(out, boxes_pad, nb, skip_mag)
+        return self._emit(out, boxes_pad, nb, self.use_flow and flow is None)
+
+    @torch.no_grad()
+    def push_many(self, frames: np.ndarray, boxes_list,
+                  flows: Optional[np.ndarray] = None) -> List[float]:
+        """Score k consecutive frames of the CURRENT video in one ensemble
+        forward and one download, returning their k scores: equal to k
+        push() calls. All k frames must belong to the current video (call
+        start_video between batches at video boundaries); pipelined push()
+        results still in flight stay queued (drain() them). flows=None on
+        a flow-fusing model degrades like push(flow=None): zero flow
+        cubes, motion filter bypassed."""
+        frames = self._norm_frames(frames)
+        k = frames.shape[0]
+        if k == 0:
+            return []
+        self._ensure_rings(*frames.shape[1:3])
+        boxes_pad, nbs = self._pad_many(boxes_list, k)
+        skip_mag = self.use_flow and flows is None
+        n0, rlen = self._n_pushed, self._rlen
+        glob = n0 + np.arange(k)
+
+        def staged(g, n):  # global frame -> slot of (ring of n slots, batch)
+            return np.where(g >= n0, n + g - n0, g % n)
+
+        win = np.stack([self._v0 + _predict_window(g - self._v0, self.ctx)
+                        for g in glob])
+        owin = np.stack([self._v0 + _predict_window(g - self._v0, self.ctx_of)
+                         for g in glob])
+        win_t, owin_t, keep_t, okeep_t = self._indices(
+            (staged(win, rlen), rlen + k), (staged(owin, self.R_of), self.R_of + k),
+            (glob[-rlen:] % rlen, rlen), (glob[-self.R_of:] % self.R_of, self.R_of),
+        )
+        frames_t = self._color(_upload(frames, self.device))
+        src = torch.cat([self._ring, frames_t])
+        wd = src.index_select(0, win_t).reshape((k, -1) + src.shape[1:])
+        owd = None
+        if self.use_flow:
+            flows_t = (
+                torch.zeros(frames_t.shape[:3] + (2,), device=self.device)
+                if flows is None
+                else _upload(np.asarray(flows, np.float32), self.device)
+            )
+            fsrc = torch.cat([self._flow_ring, flows_t])
+            owd = fsrc.index_select(0, owin_t).reshape((k, -1) + fsrc.shape[1:])
+        outs = self._score_windows(wd, owd, _upload(boxes_pad, self.device))
+        # the rings keep the newest frames (and flow maps)
+        self._ring[keep_t] = frames_t[-rlen:]
+        if self.use_flow:
+            self._flow_ring[okeep_t] = flows_t[-self.R_of:]
+        self._n_pushed += k
+        outs = outs.cpu().numpy()  # one download for all k frames
+        return [self._finish_host(outs[j], boxes_pad[j], nbs[j], self._scene,
+                                  skip_mag) for j in range(k)]
+
+    def time_device_step(self, frame: np.ndarray, boxes: np.ndarray,
+                         k: int = 64, repeats: int = 3) -> float:
+        """Device-time twin of push(): best ms per step of the device step
+        alone (ring writes, gathers, STC and the ensemble), its inputs
+        staged on the device once and k steps chained per repeat
+        (serve._common._time_device_chain). Excludes the host's share of
+        a push: preparing and uploading its inputs, and the download. A
+        flow-fusing model is timed with a zero flow map. Runs on clones
+        of the rings: the scorer's serving state is untouched."""
+        frame = self._norm_frame(frame)
+        self._ensure_rings(*frame.shape[:2])
+        boxes_pad, _ = self._pad_boxes(boxes)
+        zero = np.zeros(frame.shape[:2] + (2,), np.float32)
+        args = self._stage(frame, zero if self.use_flow else None, boxes_pad)
+        with torch.no_grad():
+            return _time_device_chain(self, lambda: self._step(*args), k, repeats)
 
     def drain(self) -> List[float]:
         """Materialize and return the scores still in flight (stream end)."""
@@ -275,10 +434,9 @@ class StreamingScorer:
         self._pending.clear()
         return out
 
-    def _finish(self, out, boxes_pad, nb, scene, skip_mag=False) -> float:
-        return self._finish_host(
-            out.cpu().numpy(), boxes_pad, nb, scene, skip_mag
-        )
+    def _finish(self, handle, boxes_pad, nb, scene, skip_mag=False) -> float:
+        return self._finish_host(_host_result(handle), boxes_pad, nb, scene,
+                                 skip_mag)
 
     def _finish_host(self, out, boxes_pad, nb, scene, skip_mag=False) -> float:
         """Score reduction on a downloaded result vector: host-side grid
