@@ -4,7 +4,8 @@ live-flow two-stream slice end to end at full width, trains FlowNetC
 (and takes a FlowNet2 fine-tuning step) at FlyingChairs' 384x512, runs
 calc-flow, train and test at full width, at dataset scale too, and
 drives the serving surface (push_many, probes, bf16, camera fleets with
-and without live flow, the serve CLI).
+and without live flow, the serve CLI), then computes foreground boxes
+from the frames and serves with them computed in the loop.
 
     python3 chip_smoke.py
 
@@ -143,6 +144,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      score), one K1 launch a live push or tick, and FlowStreamingScorer
      over the first test video against phase 7's offline frame scores
      (5e-4 of the largest).
+ 10. foreground: a seeded synthetic tree in ShanghaiTech's layout at
+     480x856 (2 + 2 videos of 160 frames, .npy frames, the test videos'
+     frame labels in Testing/test_frame_mask) and the 5raw1of model
+     (nf=32, patch 32, batch 128, 10 epochs, 64 boxes). (a) motion maps
+     of 64 windows at 480x856 (k 5, threshold 15) and at 240x360 (k 3,
+     threshold 18) on the card against the CPU, bit for bit, with the
+     map pass's ms per 64 frames (CUDA events) and the host contours' ms
+     a frame; (b) `precompute-boxes` through cli.main (motion-only):
+     frames/s with the frame reads, the map pass, the downloads and the
+     contours apart, the first 32 test frames' boxes on the CPU equal to
+     the card's and the fixture's, and `load_split` without the fixture
+     computing the same boxes; (c) calc-flow (one K1 launch a batch of
+     4), `run_train` and `run_test` on those boxes, the AUROC; (d) `serve
+     --motion` and `serve --motion --live-flow` through cli.main over the
+     test split: each streamed AUROC within 1e-3 of `test`'s, the frame
+     scores within 5e-4 of the largest of `test`'s, push median and p90,
+     each scorer's time_device_step, one K1 launch a live push and K1 on
+     a live push's conv3 features; (e) MotionStreamingScorer with
+     appearance boxes merged over a 24-frame and a 2-frame video against
+     the offline pipeline on compute_foreground_bboxes' boxes (2e-4), a
+     1-frame video against StreamingScorer's score of its appearance box
+     and -big_number without one.
 
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
@@ -175,6 +198,12 @@ from vec_vad_torch.eval import metrics
 from vec_vad_torch.flow import driver
 from vec_vad_torch.flow.harness import FlowHarness
 from vec_vad_torch.flow.trainer import FlowTrainer
+from vec_vad_torch.fore import motion as fmotion
+from vec_vad_torch.fore.detector import (
+    compute_foreground_bboxes,
+    filter_detections,
+)
+from vec_vad_torch.fore.suppress import del_cover_bboxes
 from vec_vad_torch.infer import infer_frame_scores_resident
 from vec_vad_torch.models.completion import init_completion_state, make_completion_net
 from vec_vad_torch.models.flownet import make_flownet2
@@ -185,6 +214,7 @@ from vec_vad_torch.runtime.artifacts import load_vad_model
 from vec_vad_torch.score import scoring as score_mod
 from vec_vad_torch.serve import (
     FlowStreamingScorer,
+    MotionStreamingScorer,
     MultiCameraFlowScorer,
     MultiCameraScorer,
     StreamingScorer,
@@ -278,6 +308,22 @@ STREAM_AUROC_TOL = 1e-3
 # batches of 4 against the live batch of 1), relative to the largest
 # score: the run_train -> run_test bound
 LIVE_OFFLINE_TOL = 5e-4
+# foreground and motion serving (phase 10): ShanghaiTech's 480x856 in its
+# layout, 2 + 2 videos of 160 frames (ShanghaiTech: 330 + 107 videos,
+# 274,515 + 40,791 frames; cut for time and disk: 0.79 GB of frames, 2.1
+# GB of flow maps), the 5raw1of model at the flagship width
+FG_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_foreground"
+FG_HW = (480, 856)
+FG_LENGTHS = {"Train": (160, 160), "Test": (160, 160)}
+FG_CFG = PipelineConfig(
+    dataset_name="ShanghaiTech", fore=ForegroundConfig(patch_size=32),
+    model=CompletionConfig(nf=32, context_frame_num=4, context_of_num=0,
+                           use_flow=True, border_mode="predict"),
+)
+FG_WINDOWS = 64  # windows of a motion-map pass: the offline stage's chunk
+FG_SMALL_HW = (240, 360)  # UCSDped2's geometry (k = 3, threshold 18)
+FG_CPU_FRAMES = 32  # test frames whose boxes the CPU computes too
+FG_AP_VIDEO = 24  # frames of test video 1 served with appearance boxes
 # two runs of the same f32 scoring on the card, relative to the largest
 # score: they may differ in a score's last bit (1.2e-4 at scores near
 # 1,900, 6.5e-8 of the largest, on an H100: cuDNN's default algorithms
@@ -2099,6 +2145,335 @@ def serving_cli_phase(ts: dict, flow_net) -> int:
     return live_launches + fleet_launches + launches
 
 
+# -- phase 10: foreground boxes and motion serving -------------------------
+
+
+def write_shanghaitech_tree(root: Path, seed: int) -> None:
+    """FG_LENGTHS' videos from the synthetic generator at FG_HW (moving
+    squares; anomalous squares in every other test video) as uint8 .npy
+    frames in ShanghaiTech's layout: training/videosFrame/01_NNN,
+    Testing/frames_part1/01_NNNN, and each test video's frame labels in
+    Testing/test_frame_mask/<video>.npy. No bbox fixtures."""
+    tr, te = FG_LENGTHS["Train"], FG_LENGTHS["Test"]
+    fpv = max(tr + te)
+    ds = make_synthetic_dataset(frames_per_video=fpv, n_train_videos=len(tr),
+                                n_test_videos=len(te), frame_h=FG_HW[0],
+                                frame_w=FG_HW[1], seed=seed)
+    for split, lengths, frames in (("train", tr, ds.train_frames),
+                                   ("test", te, ds.test_frames)):
+        for v, n in enumerate(lengths):
+            name = f"01_{v + 1:03d}" if split == "train" else f"01_{v + 1:04d}"
+            d = root / ("training/videosFrame" if split == "train"
+                        else "Testing/frames_part1") / name
+            d.mkdir(parents=True)
+            for t in range(n):
+                np.save(d / f"{t:03d}.npy", frames[v * fpv + t])
+            if split == "test":
+                gt = root / "Testing" / "test_frame_mask"
+                gt.mkdir(parents=True, exist_ok=True)
+                np.save(gt / f"{name}.npy", ds.test_labels[v * fpv: v * fpv + n])
+
+
+def scored_rel(got, want) -> float:
+    """rel_diff over the frames that have a scoring box; frames without
+    one (-big_number) must match exactly."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"shapes {got.shape} / {want.shape}")
+    empty = want <= -score_mod.BIG_NUMBER
+    check(np.array_equal(got[empty], want[empty]) and (~empty).any(),
+          f"{empty.sum()} frames without boxes do not match")
+    return rel_diff(got[~empty], want[~empty])
+
+
+def recording(cls, out: list, made: list):
+    """`cls` with every score its push() and end_video() emit appended to
+    `out` and each instance appended to `made`."""
+
+    class Recorded(cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+        def push(self, *a, **k):
+            s = super().push(*a, **k)
+            if s is not None:
+                out.append(s)
+            return s
+
+        def end_video(self):
+            got = super().end_video()
+            out.extend(got)
+            return got
+
+    return Recorded
+
+
+def foreground_phase() -> dict:
+    """Foreground boxes from the frames and the motion scorers on the card
+    (module docstring, phase 10, a-e). Returns K1's launches on the main
+    paths here and its largest error on a live push's conv3 features."""
+    shutil.rmtree(FG_BASE, ignore_errors=True)
+    cfg, mc = FG_CFG, FG_CFG.model
+    # ShanghaiTech's layout, its frames stored as .npy (the card's machine
+    # has no cv2 to decode .jpg)
+    config.register_dataset(dataclasses.replace(config.DATASETS["ShanghaiTech"],
+                                                file_ext=".npy"))
+    spec = cfg.dataset
+    dev = runner.resolve_device("cuda")
+    base = str(FG_BASE)
+    raw_root = FG_BASE / cfg.raw_dataset_dir / cfg.dataset_name
+    t0 = time.perf_counter()
+    write_shanghaitech_tree(raw_root, SEED + 10)
+    n_tr, n_te = (sum(FG_LENGTHS[s]) for s in ("Train", "Test"))
+    print(f"foreground: wrote {n_tr} train and {n_te} test frames at {FG_HW} in "
+          f"ShanghaiTech's layout in {time.perf_counter() - t0:.1f} s (set-up)",
+          flush=True)
+    te_index = VideoIndex.from_layout(cfg.dataset_name, str(raw_root), "test", ".npy")
+    te_frames = readers.LazyFrameStack(te_index)
+
+    # (a) motion maps on the card against the CPU, bit for bit
+    small = make_synthetic_dataset(frames_per_video=FG_WINDOWS + 2, n_train_videos=1,
+                                   n_test_videos=1, frame_h=FG_SMALL_HW[0],
+                                   frame_w=FG_SMALL_HW[1], seed=SEED + 12)
+    for fspec, frames in ((spec, np.asarray(te_frames[0:FG_WINDOWS + 2])),
+                          (config.DATASETS["UCSDped2"], small.test_frames)):
+        k, thr = int(fspec.mt_gauss_mask_size), int(fspec.mt_binary_thr)
+        win = np.stack([frames[t:t + 3] for t in range(FG_WINDOWS)])
+        win_t = torch.from_numpy(win).to(dev)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        card = fmotion.motion_maps(win_t, k, thr)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        cpu = fmotion.motion_maps(torch.from_numpy(win), k, thr)
+        check(card.dtype == torch.bool and torch.equal(card.cpu(), cpu),
+              f"card maps differ from the CPU's at {frames.shape[1:3]}")
+        ms = cuda_ms(lambda: fmotion.motion_maps(win_t, k, thr), reps=5)
+        maps = cpu.numpy()
+        fmotion.motion_bboxes(maps[0], None, fspec.mt_area_thr, fspec.mt_extend)  # warm
+        t0 = time.perf_counter()
+        n_boxes = sum(fmotion.motion_bboxes(m, None, fspec.mt_area_thr,
+                                            fspec.mt_extend).shape[0] for m in maps)
+        contour_ms = (time.perf_counter() - t0) * 1e3 / FG_WINDOWS
+        print(f"foreground: (a) motion maps of {FG_WINDOWS} windows at "
+              f"{frames.shape[1:3]} (k {k}, threshold {thr}): card equal to the CPU "
+              f"bit for bit ({100 * maps.mean():.2f} % of pixels set); map pass "
+              f"{ms:.3f} ms per {FG_WINDOWS} frames (CUDA events), peak device "
+              f"memory {peak / 2**20:.1f} MiB above the windows; host contours "
+              f"{contour_ms:.3f} ms a frame ({n_boxes} boxes)", flush=True)
+        del win_t, card
+
+    # (b) precompute-boxes through the CLI (motion-only: no detector)
+    ini = FG_BASE / "fg.cfg"
+    ini.write_text(
+        f"[shared_parameters]\ndataset_name = {cfg.dataset_name}\n"
+        f"[{cfg.dataset_name}]\npatch_size = {cfg.fore.patch_size}\n"
+        f"[SelfComplete]\nnf = {mc.nf}\ncontext_frame_num = {mc.context_frame_num}\n"
+        f"context_of_num = {mc.context_of_num}\nuseFlow = {mc.use_flow}\n")
+    common = ["--config", str(ini), "--base", base]
+    clock = {}
+    compute = runner.compute_foreground_bboxes
+    runner.compute_foreground_bboxes = lambda *a, **k: compute(*a, timings=clock, **k)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _, wall = timed(lambda: serve_cli(["precompute-boxes"] + common))
+    finally:
+        runner.compute_foreground_bboxes = compute
+    peak = torch.cuda.max_memory_allocated()
+    fixtures = {s: np.load(raw_root / f"bboxes_{s}_obj_det_with_motion.npy",
+                           allow_pickle=True) for s in ("train", "test")}
+    counts = np.array([b.shape[0] for s in fixtures for b in fixtures[s]])
+    print(f"foreground: (b) precompute-boxes {n_tr + n_te} frames in {wall:.2f} s, "
+          f"{(n_tr + n_te) / wall:.1f} frames/s: frame reads {clock['read']:.3f} s, "
+          f"map pass (upload, blur, threshold) {clock['maps']:.3f} s, map downloads "
+          f"{clock['download']:.3f} s, host contours {clock['contours']:.3f} s "
+          f"({1e3 * clock['contours'] / (n_tr + n_te):.2f} ms a frame), the rest "
+          f"(index, fixture writes) {wall - sum(clock.values()):.3f} s; peak device memory "
+          f"{peak / 2**20:.1f} MiB; boxes a frame mean {counts.mean():.2f} max "
+          f"{counts.max()}", flush=True)
+    check(all(len(fixtures[s]) == n for s, n in (("train", n_tr), ("test", n_te))),
+          "fixture lengths")
+    check(all(b.dtype == np.float32 and b.ndim == 2 and b.shape[1] == 4
+              for s in fixtures for b in fixtures[s]), "fixture dtypes")
+    check(counts.max() <= cfg.fore.max_boxes_per_frame and (counts > 0).mean() > 0.5,
+          f"boxes a frame {counts.min()}-{counts.max()}")
+    # the first FG_CPU_FRAMES test frames (and the next, their last window's)
+    # on the CPU and on the card, against the fixture
+    idx = VideoIndex(["v"], np.array([FG_CPU_FRAMES + 1]))
+    head = np.asarray(te_frames[0:FG_CPU_FRAMES + 1])
+    on = {d: compute_foreground_bboxes(cfg, spec, idx, frames=head,
+                                       detector=runner._resolve_detector(cfg),
+                                       device=d) for d in ("cpu", "cuda")}
+    for i in range(FG_CPU_FRAMES):
+        a, b, f = on["cpu"][i], on["cuda"][i], fixtures["test"][i]
+        check(a.dtype == b.dtype and np.array_equal(a, b)
+              and np.array_equal(np.asarray(a, np.float32), f),
+              f"test frame {i}: CPU boxes {a}, card {b}, fixture {f}")
+    fixture = raw_root / "bboxes_test_obj_det_with_motion.npy"
+    aside = fixture.with_suffix(".aside")
+    fixture.rename(aside)
+    try:
+        data, load_s = timed(lambda: runner.load_split(cfg, base, "test", device=dev))
+    finally:
+        aside.rename(fixture)
+    check(len(data.boxes) == n_te and all(
+        np.array_equal(np.asarray(b, np.float32), f)
+        for b, f in zip(data.boxes, fixtures["test"])), "load_split's boxes")
+    print(f"foreground: (b) the first {FG_CPU_FRAMES} test frames' boxes on the CPU "
+          f"equal the card's and the fixture's; load_split without the fixture "
+          f"computed the same {n_te} frames' boxes in {load_s:.2f} s", flush=True)
+
+    # (c) calc-flow -> train -> test on those boxes
+    torch.cuda.reset_peak_memory_stats()
+    wall, decode, write, calc_launches = timed_calc_flow(cfg, FG_BASE,
+                                                         flow_dtype="float32")
+    want = flow_batches([n_tr, n_te], 4)
+    print(f"foreground: (c) calc-flow {n_tr + n_te} maps at {FG_HW} in {wall:.2f} s, "
+          f"{(n_tr + n_te) / wall:.2f} maps/s (decode {decode:.2f} s, .npy writes "
+          f"{write:.2f} s), K1 launches {calc_launches} for {want} batches", flush=True)
+    check(calc_launches == {"correlation": want}, f"calc-flow launches {calc_launches}")
+    kernels.reset_launch_counts()
+    (model, _), train_s = timed(lambda: runner.run_train(cfg, base, seed=SEED,
+                                                         device=dev))
+    block = model.blocks[(0, 0, 0)]
+    per_epoch = -(-block.raw_scores.size // mc.batch_size)
+    first, last = block.losses[:per_epoch].mean(), block.losses[-per_epoch:].mean()
+    check(np.isfinite(block.losses).all() and last < first,
+          f"losses {first} -> {last}")
+    res, test_s = timed(lambda: runner.run_test(cfg, base, model=model, device=dev))
+    fs = res["frame_scores"]
+    check(fs.shape == (n_te,) and np.isfinite(fs).all() and np.isfinite(res["auroc"]),
+          f"test: {fs.shape} frame scores, AUROC {res['auroc']}")
+    print(f"foreground: (c) run_train {block.raw_scores.size} cubes, "
+          f"{block.losses.size} steps, {train_s:.2f} s (loss {first:.4f} -> "
+          f"{last:.4f}); run_test {test_s:.2f} s, AUROC {res['auroc']:.6f}; "
+          f"launches {dict(kernels.launch_counts)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    check(not kernels.launch_counts.get("correlation"), "K1 in train or test")
+
+    # (d) serve --motion and serve --motion --live-flow over the test split
+    import vec_vad_torch.serve as serve_pkg
+
+    frame0, boxes0 = np.asarray(te_frames[FG_CPU_FRAMES]), fixtures["test"][FG_CPU_FRAMES]
+    conv3, hooks = [], []
+    build = cli._build_live_flow
+
+    def hooked(args, device):  # K1 on a live push's conv3 features
+        net, kw = build(args, device)
+        cap, handle = conv3_hook(net, 1)
+        conv3.append(cap)
+        hooks.append(handle)
+        return net, kw
+
+    out = {}
+    launches = {}
+    for name, flag in (("MotionStreamingScorer", []),
+                       ("MotionFlowStreamingScorer", ["--live-flow"])):
+        scores, made = [], []
+        cls = getattr(serve_pkg, name)
+        setattr(serve_pkg, name, recording(cls, scores, made))
+        cli._build_live_flow = hooked
+        try:
+            (text, wall), launches[name] = k1_counted(lambda: timed(
+                lambda: serve_cli(["serve", "--motion"] + flag + common)))
+        finally:
+            setattr(serve_pkg, name, cls)
+            cli._build_live_flow = build
+            for h in hooks:
+                h.remove()
+        auroc = float(re.search(r"frame-level AUROC \(streamed\): ([\d.]+)", text)[1])
+        med_ms, p90_ms = (float(x) for x in re.search(
+            r"median latency ([\d.]+) ms .* p90 ([\d.]+) ms", text).groups())
+        rel = scored_rel(scores, fs)
+        probe = made[0].time_device_step(frame0, boxes0)
+        print(f"foreground: (d) serve --motion {' '.join(flag)}: {n_te} frames in "
+              f"{wall:.2f} s, push median {med_ms:.1f} ms p90 {p90_ms:.1f} ms, "
+              f"time_device_step {probe:.3f} ms; streamed AUROC {auroc:.4f} against "
+              f"test's {res['auroc']:.6f} (bound {STREAM_AUROC_TOL}); frame scores "
+              f"against test's max |diff| / max |score| {rel:.3e} (bound "
+              f"{LIVE_OFFLINE_TOL}); K1 launches {launches[name]}", flush=True)
+        check(abs(auroc - res["auroc"]) <= STREAM_AUROC_TOL, f"streamed AUROC {auroc}")
+        check(rel <= LIVE_OFFLINE_TOL, f"served against test: {rel}")
+        out[name] = made[0]
+    check(launches["MotionStreamingScorer"] == 0
+          and launches["MotionFlowStreamingScorer"] == n_te,
+          f"serve --motion K1 launches {launches}")
+    a, b = conv3[-1]
+    check(tuple(a.shape) == SERVE_SHAPE, f"conv3 features {tuple(a.shape)}")
+    fwd_err = check_fwd(a.contiguous(), b.contiguous())
+    print(f"foreground: (d) K1 on a live push's conv3 features max_abs_err "
+          f"{fwd_err:.3e}", flush=True)
+    del out
+
+    # (e) appearance boxes merged, a 2-frame and a 1-frame video, against the
+    # card's offline pipeline on the same boxes
+    data = runner.load_split(cfg, base, "test", device=dev)
+    v2 = int(data.index.video_lengths[0])
+    rows = list(range(FG_AP_VIDEO)) + [v2, v2 + 1]
+    frames = np.stack([np.asarray(data.frames[r]) for r in rows])
+    flows = np.stack([np.asarray(data.flow[r]) for r in rows])
+    lengths = (FG_AP_VIDEO, 2)
+    # seeded appearance detections (0-3 a frame, 10-30 % of the frame's
+    # width and height), filtered and suppressed like the offline stage
+    rng = np.random.default_rng(SEED + 11)
+    wh = np.array(FG_HW[::-1], np.float64)
+    raw = []
+    for _ in rows:
+        n = int(rng.integers(0, 4))
+        xy = rng.uniform(0, 0.7, (n, 2)) * wh
+        raw.append((np.concatenate([xy, xy + rng.uniform(0.1, 0.3, (n, 2)) * wh], 1),
+                    rng.uniform(0, 1, n)))
+    ap = [del_cover_bboxes(filter_detections(b, s, spec.ap_score_thr, spec.ap_min_area),
+                           spec.cover_thr) for b, s in raw]
+    idx = VideoIndex(["a", "b"], np.array(lengths))
+    dets = iter(raw)
+    boxes = compute_foreground_bboxes(cfg, spec, idx, frames=frames,
+                                      detector=lambda img: next(dets), device=dev)
+    n_ap = sum(a.shape[0] for a in ap)
+    check(n_ap > 0, "no appearance box passed the filters")
+    boxes_pad, valid = pad_boxes(boxes, cfg.fore.max_boxes_per_frame)
+    offline = infer_frame_scores_resident(
+        cfg, block.state_dict, block.raw_stats + block.of_stats, frames,
+        idx.context_indices(mc.context_frame_num, mc.border_mode), boxes_pad, valid,
+        flow=flows, of_windows=idx.context_indices(
+            mc.context_of_num, mc.border_mode).reshape(len(rows), -1), device=dev)
+    sc = MotionStreamingScorer.from_model(model, spec=spec, device="cuda")
+    streamed, i = [], 0
+    for ln in lengths:
+        sc.start_video()
+        for _ in range(ln):
+            s = sc.push(frames[i], ap_boxes=ap[i], flow=flows[i])
+            if s is not None:
+                streamed.append(s)
+            i += 1
+        streamed += sc.end_video()
+    rel = scored_rel(streamed, offline)
+    # a 1-frame video: its window [0, 0, 0] maps nothing, so it scores its
+    # appearance boxes alone, as StreamingScorer does (and -big_number
+    # without any)
+    one_ap = (np.array([[0.12, 0.17, 0.3, 0.62]]) * np.tile(wh, 2)).astype(np.float32)
+    sc.start_video()
+    sc.push(frames[0], ap_boxes=one_ap, flow=flows[0])
+    got1 = sc.end_video()
+    plain = StreamingScorer.from_model(model, device="cuda")
+    plain.start_video()
+    want1 = plain.push(frames[0], one_ap, flow=flows[0])
+    sc.start_video()
+    sc.push(frames[0], flow=flows[0])
+    empty = sc.end_video()
+    rel1 = abs(got1[0] - want1) / abs(want1)
+    print(f"foreground: (e) MotionStreamingScorer with {n_ap} appearance boxes over "
+          f"videos of {lengths} frames against the offline pipeline on "
+          f"compute_foreground_bboxes' boxes: max |diff| / max |score| {rel:.3e} "
+          f"(bound {SERVE_REL_TOL}); a 1-frame video {got1} against StreamingScorer's "
+          f"{want1:.6f} ({rel1:.3e}), without boxes {empty}", flush=True)
+    check(rel <= SERVE_REL_TOL and rel1 <= SERVE_REL_TOL, f"(e): {rel}, {rel1}")
+    check(empty == [-score_mod.BIG_NUMBER], f"a 1-frame video without boxes {empty}")
+    return {"launches": calc_launches["correlation"]
+            + launches["MotionFlowStreamingScorer"], "fwd_err": fwd_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -2238,19 +2613,25 @@ def main() -> int:
     surf_launches = surf["launches"] + cli_launches
     del ts
     shutil.rmtree(TS_BASE, ignore_errors=True)
-    phase_done("serving-surface", t_phase)
+    t_phase = phase_done("serving-surface", t_phase)
+
+    # -- foreground phase: motion boxes, precompute-boxes, motion serving ----
+    fg = foreground_phase()
+    shutil.rmtree(FG_BASE, ignore_errors=True)
+    phase_done("foreground", t_phase)
 
     rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"],
-                               calc["fwd_err"], surf["fwd_err"]))
+                               calc["fwd_err"], surf["fwd_err"], fg["fwd_err"]))
     rec_bwd.update(max_abs_err=max(rec_bwd["max_abs_err"], train["bwd_err"]))
     k1 = (launches.get("correlation", 0) + train["launches"]["correlation"]
           + ft_launches["correlation"] + calc["launches"] + ts_launches
-          + surf_launches)
+          + surf_launches + fg["launches"])
     k2 = train["launches"]["correlation_bwd"] + ft_launches["correlation_bwd"]
     print(f"launches on the main paths: K1 {k1} (serving {launches.get('correlation', 0)}, "
           f"FlowNetC training {train['launches']['correlation']}, FlowNet2 steps "
           f"{ft_launches['correlation']}, calc-flow {calc['launches']}, two-stream "
-          f"calc-flow {ts_launches}, serving surface {surf_launches}); K2 {k2}")
+          f"calc-flow {ts_launches}, serving surface {surf_launches}, foreground "
+          f"{fg['launches']}); K2 {k2}")
     # no single PyTorch call computes the cost volume or its gradients
     record = {"kernels": [
         {"name": "correlation_fwd", "route": "cuda",

@@ -469,3 +469,85 @@ def test_live_fleet_launches_k1_once_a_tick(cuda, full_f32):
         sc.start_video()
         want = [sc.push(f, b) for f, b in zip(*feeds[c])] + [sc.end_video()]
         assert _rel(rows[:, c], np.asarray([s for s in want if s is not None])) <= 2e-4
+
+
+def _motion_spec(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg.dataset, frame_h=48, frame_w=64, mt_area_thr=16.0)
+
+
+def _scored_rel(got, want):
+    """_rel over the frames with a scoring box; frames without one
+    (-big_number) must match exactly."""
+    empty = want <= -1e5
+    assert np.array_equal(got[empty], want[empty]) and (~empty).any()
+    return _rel(got[~empty], want[~empty])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,thr", [(3, 18), (5, 15), (7, 18)])
+def test_motion_maps_on_card_equal_cpu(cuda, k, thr):
+    """The motion maps on the card equal the CPU's bit for bit: every
+    product and partial sum of the blur is exact in f32, and the uint8
+    rounding and wraparound are the same ops."""
+    from vec_vad_torch.fore.motion import motion_maps
+
+    ds, _, _ = _split()
+    f = ds.test_frames
+    win = np.stack([f[t:t + 3] for t in range(f.shape[0] - 2)])
+    noise = np.random.default_rng(k).integers(0, 256, (4, 3, 48, 64, 3), dtype=np.uint8)
+    for w in (win, noise, win[..., :1].copy()):
+        cpu = motion_maps(torch.from_numpy(w), k, thr)
+        card = motion_maps(torch.from_numpy(w).to(cuda), k, thr)
+        assert card.device.type == "cuda" and torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_foreground_boxes_on_card_equal_cpu(cuda):
+    """compute_foreground_bboxes (obj_det_with_motion, motion-only) on the
+    card equals the CPU run: boxes, order and dtype."""
+    from vec_vad_torch.config import PipelineConfig
+    from vec_vad_torch.fore.detector import compute_foreground_bboxes
+
+    ds, index, _ = _split()
+    cfg = PipelineConfig(dataset_name="UCSDped2")
+    out = [compute_foreground_bboxes(cfg, _motion_spec(cfg), index, frames=ds.test_frames,
+                                     detector=lambda img: (np.zeros((0, 4)), np.zeros(0)),
+                                     chunk=16, device=d) for d in ("cpu", cuda)]
+    assert sum(b.shape[0] for b in out[0]) > 0
+    for a, b in zip(*out):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_motion_scorers_on_card_match_cpu(cuda):
+    """MotionStreamingScorer (streamed flow maps) and
+    MotionFlowStreamingScorer (FlowNet2 from seed 0 at a 128x128 model
+    size, one K1 launch a scored frame) on the card within 1e-3 of the
+    largest score of the same scorer on the CPU."""
+    from vec_vad_torch.serve import MotionFlowStreamingScorer, MotionStreamingScorer
+
+    model = _serving_model()
+    spec = _motion_spec(model.cfg)
+    frames, _, flows = _serving_stream()
+
+    def stream(sc, with_flow):
+        sc.start_video()
+        out = [sc.push(f, flow=fl) if with_flow else sc.push(f)
+               for f, fl in zip(frames, flows)]
+        return np.asarray([s for s in out if s is not None] + sc.end_video())
+
+    got, want = (stream(MotionStreamingScorer.from_model(model, spec=spec, device=d), True)
+                 for d in (cuda, "cpu"))
+    assert want.shape == (12,) and _scored_rel(got, want) <= 1e-3
+    kernels.reset_launch_counts()
+    got = stream(MotionFlowStreamingScorer.from_model(
+        model, spec=spec, flow_net=make_flownet2(0, device=cuda), flow_model_hw=(128, 128),
+        device=cuda), False)
+    assert kernels.launch_counts["correlation"] == 12
+    want = stream(MotionFlowStreamingScorer.from_model(
+        model, spec=spec, flow_net=make_flownet2(0, device="cpu"),
+        flow_model_hw=(128, 128), device="cpu"), False)
+    assert _scored_rel(got, want) <= 1e-3

@@ -686,10 +686,11 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
 
 def test_left_out_routes_refuse_by_name(tmp_path):
     """What the port leaves out raises and names its ROADMAP item: the
-    parallel GridTrainer (item 2.8), computing boxes without a bbox
-    fixture (item 4.1), a fleet sharded over a device mesh (item 5) and
-    `serve --motion` (item 4.3)."""
-    from vec_vad_torch import cli as t_cli
+    parallel GridTrainer (item 2.8), the appearance detector behind a
+    configured `mmdet_checkpoint` (item 4.2) and a fleet sharded over a
+    device mesh (item 5). Computing boxes without a bbox fixture (item
+    4.1) and `serve --motion` (item 4.3) are ported and no longer refuse
+    (tests/test_torch_foreground.py, tests/test_torch_motion_serving.py)."""
     from vec_vad_torch.serve import MultiCameraFlowScorer, MultiCameraScorer
 
     jcfg, tcfg = _configs()
@@ -699,18 +700,20 @@ def test_left_out_routes_refuse_by_name(tmp_path):
     with pytest.raises(NotImplementedError, match="item 2.8"):
         t_pipe.train_model(tcfg, cubes, parallel_blocks=True, device="cpu")
     with pytest.raises(FileNotFoundError):
-        t_runner.load_split(tcfg, str(tmp_path), "train")
+        t_runner.load_split(tcfg, str(tmp_path), "train", device="cpu")
     _register()
     ws = str(tmp_path / "ws")
     _write_workspace(ws)
     os.remove(os.path.join(ws, "raw_datasets", DATASET,
                            "bboxes_train_obj_det_with_motion.npy"))
-    with pytest.raises(FileNotFoundError, match="item 4.1"):
-        t_runner.load_split(tcfg, ws, "train")
+    mmdet = tcfg.replace(fore=dataclasses.replace(
+        tcfg.fore, mmdet_checkpoint=str(tmp_path / "cascade_rcnn.pth")))
+    with pytest.raises(NotImplementedError, match="item 4.2"):
+        t_runner.load_split(mmdet, ws, "train", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4.2"):
+        t_runner.run_precompute_boxes(mmdet, ws, device="cpu")
     for fleet, kw in ((MultiCameraScorer, {}),
                       (MultiCameraFlowScorer, {"flow_net": None})):
         with pytest.raises(NotImplementedError, match="item 5"):
             fleet(tcfg, {}, (0.0, 1.0), n_cameras=2, mesh=object(), device="cpu",
                   **kw)
-    with pytest.raises(NotImplementedError, match="item 4.3"):
-        t_cli.main(["serve", "--motion", "--base", ws, "--device", "cpu"])

@@ -23,7 +23,14 @@ Ported so far:
     tree) — runner.run_train / run_test over pipeline.extract_cube_set,
     train.trainer.BlockTrainer and pipeline.score_cubes,
     infer.infer_frame_scores_resident, the AUROC of eval.metrics, models
-    saved in the JAX package's .npz layout, and the train / test CLI.
+    saved in the JAX package's .npz layout, and the train / test CLI;
+  * foreground boxes from the frames — fore.motion (motion maps on the
+    device, contours on the host without cv2), fore.detector.
+    compute_foreground_bboxes, runner.run_precompute_boxes and the
+    precompute-boxes CLI; load_split computes boxes where no fixture is;
+  * serving at large — push_many, the camera fleets, bf16 scoring and the
+    serve CLI, and the self-contained motion scorers
+    (serve.MotionStreamingScorer, serve.MotionFlowStreamingScorer).
 The FlowNetC correlation is differentiable and runs as hand-written CUDA
 kernels on the card: csrc/correlation.cu forward, csrc/correlation_bwd.cu
 backward.

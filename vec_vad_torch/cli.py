@@ -1,11 +1,12 @@
 """The port's command line (vec_vad_tpu/cli.py): `train`, `test`,
-`calc-flow`, `serve`, `flow-train` and `flow-infer`, with vec_vad_tpu's
-flags and messages plus `--device` (the card by default; `--device cpu`
-runs the plain PyTorch path).
+`calc-flow`, `precompute-boxes`, `serve`, `flow-train` and `flow-infer`,
+with vec_vad_tpu's flags and messages plus `--device` (the card by
+default; `--device cpu` runs the plain PyTorch path).
 
     python -m vec_vad_torch train --config config.cfg --base .
     python -m vec_vad_torch test --config config.cfg --base .
     python -m vec_vad_torch calc-flow --config config.cfg --base .
+    python -m vec_vad_torch precompute-boxes --config config.cfg --base .
     python -m vec_vad_torch serve --config config.cfg --base . [--frames N]
     python -m vec_vad_torch flow-train --data-root TREE --workdir WD \\
         --net FlowNetC --loss multiscale --norm L1
@@ -15,10 +16,12 @@ With `useFlow = True` in the config and the tree calc-flow wrote, train
 and test run the two-stream model. `--resident` extracts a split on the
 device (no cube cache) and test's `--pixel-criterion` adds the
 pixel-level AUROC from the dataset's pixel GT (avenue's .mat files; the
-ped layout's .bmp masks need cv2). `serve` streams the test split through
-the online scorers (`--live-flow`: flow computed in the loop;
-`--cameras C`: a fleet); its `--motion` modes are ROADMAP.md Queue 1 item
-4.3's and refuse.
+ped layout's .bmp masks need cv2). `precompute-boxes` writes the
+`bboxes_{split}_{mode}.npy` fixtures from the frames (motion maps on the
+device, contours on the host; without a fixture, train and test compute
+the same boxes). `serve` streams the test split through the online
+scorers (`--live-flow`: flow computed in the loop; `--motion`: boxes
+computed in the loop, with `--live-flow` both; `--cameras C`: a fleet).
 calc-flow has no `--no-mesh`: the JAX package's data-parallel mesh is not
 ported. The other subcommands of vec_vad_tpu are not ported yet
 (ROADMAP.md).
@@ -110,6 +113,17 @@ def cmd_calc_flow(args) -> int:
         resident=args.resident, segment_frames=args.segment_frames or None,
         chunk=args.chunk or None, flow_dtype=args.flow_dtype,
         device=args.device,
+    )
+    return 0
+
+
+def cmd_precompute_boxes(args) -> int:
+    from vec_vad_torch.runner import run_precompute_boxes
+
+    cfg = _load_cfg(args)
+    run_precompute_boxes(
+        cfg, args.base, splits=tuple(args.splits.split(",")),
+        overwrite=args.overwrite, device=args.device,
     )
     return 0
 
@@ -212,9 +226,11 @@ def _serve_fleet(cfg, model, data, args, live: bool, device) -> int:
 
 def cmd_serve(args) -> int:
     """Online serving: stream the test split frame by frame
-    through serve.StreamingScorer (or its live-flow / fleet forms) and
-    report steady-state latency, plus the streamed AUROC when the whole
-    split is scored (equal to offline `test`'s up to summation order)."""
+    through serve.StreamingScorer (or its live-flow, motion or fleet
+    forms) and report steady-state latency (median and p90), plus the
+    streamed AUROC when the whole split is scored (equal to offline
+    `test`'s up to summation order; with --motion, to `test` on the boxes
+    precompute-boxes computes)."""
     import time
 
     import numpy as np
@@ -222,30 +238,43 @@ def cmd_serve(args) -> int:
     from vec_vad_torch.device import resolve_device
     from vec_vad_torch.runner import load_split, model_path
     from vec_vad_torch.runtime.artifacts import load_vad_model
-    from vec_vad_torch.serve import FlowStreamingScorer, StreamingScorer
+    from vec_vad_torch.serve import (
+        FlowStreamingScorer,
+        MotionFlowStreamingScorer,
+        MotionStreamingScorer,
+        StreamingScorer,
+    )
 
-    if args.motion:
-        raise NotImplementedError(
-            "serve --motion (boxes computed in the serving loop) is not "
-            "ported (ROADMAP.md Queue 1 item 4.3)"
-        )
     cfg = _load_cfg(args)
-    live = bool(args.live_flow)
+    live, motion = bool(args.live_flow), bool(args.motion)
     if live and not cfg.model.use_flow:
         # fail BEFORE the FlowNet2 build or checkpoint load
         raise SystemExit(
             "--live-flow needs a two-stream model (useFlow=True); "
             "this config is raw-only"
         )
+    if motion and int(args.cameras) > 1:
+        raise SystemExit(
+            "--motion composes with single-camera serving only "
+            "(not --cameras)"
+        )
     device = resolve_device(args.device)
     model = load_vad_model(model_path(cfg, args.base))
-    data = load_split(cfg, args.base, "test")
+    data = load_split(cfg, args.base, "test", device=device)
     if int(args.cameras) > 1:
         return _serve_fleet(cfg, model, data, args, live, device)
-    if live:
+    if live and motion:
+        # fully self-contained: boxes AND flow computed in the loop
+        fnet, fkw = _build_live_flow(args, device)
+        scorer = MotionFlowStreamingScorer.from_model(
+            model, spec=cfg.dataset, flow_net=fnet, device=device, **fkw)
+    elif live:
         fnet, fkw = _build_live_flow(args, device)
         scorer = FlowStreamingScorer.from_model(model, flow_net=fnet,
                                                 device=device, **fkw)
+    elif motion:
+        scorer = MotionStreamingScorer.from_model(model, spec=cfg.dataset,
+                                                  device=device)
     else:
         scorer = StreamingScorer.from_model(model, device=device)
 
@@ -268,7 +297,9 @@ def cmd_serve(args) -> int:
                 break
             frame = np.asarray(data.frames[i])
             t0 = time.perf_counter()
-            if live:
+            if live and motion:
+                s = scorer.push(frame)  # boxes AND flow computed in the loop
+            elif live:
                 s = scorer.push(frame, data.boxes[i])
             else:
                 flow = (
@@ -276,12 +307,17 @@ def cmd_serve(args) -> int:
                     if scorer.use_flow and data.flow is not None
                     else None
                 )
-                s = scorer.push(frame, data.boxes[i], flow=flow)
+                if motion:
+                    s = scorer.push(frame, flow=flow)
+                else:
+                    s = scorer.push(frame, data.boxes[i], flow=flow)
             lat.append(time.perf_counter() - t0)
             if s is not None:
                 scores.append(s)
             i += 1
-        if live:
+        if motion:
+            scores.extend(scorer.end_video())
+        elif live:
             s = scorer.end_video()
             if s is not None:
                 scores.append(s)
@@ -289,7 +325,8 @@ def cmd_serve(args) -> int:
     lat = np.array(lat[2:]) if len(lat) > 2 else np.array(lat)  # drop warm-up
     print(
         f"streamed {i} frames: median latency {np.median(lat) * 1e3:.1f} ms "
-        f"({1.0 / max(np.median(lat), 1e-9):.1f} fps steady-state)"
+        f"({1.0 / max(np.median(lat), 1e-9):.1f} fps steady-state), p90 "
+        f"{np.percentile(lat, 90) * 1e3:.1f} ms"
     )
     if args.frames <= 0 and len(scores) == data.index.total_frames:
         from vec_vad_torch.data.readers import load_frame_labels
@@ -554,6 +591,17 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_calc_flow)
 
     p = sub.add_parser(
+        "precompute-boxes",
+        help="generate bboxes_{split}_{mode}.npy fixtures from the frames "
+        "(motion maps on the device, contours on the host)",
+    )
+    _add_common(p)
+    p.add_argument("--splits", default="train,test")
+    p.add_argument("--overwrite", action="store_true")
+    _add_device(p)
+    p.set_defaults(fn=cmd_precompute_boxes)
+
+    p = sub.add_parser(
         "serve",
         help="online streaming scorer over the test split "
         "(one frame at a time)",
@@ -586,8 +634,9 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--motion", action="store_true",
-        help="boxes computed in the serving loop: not ported "
-        "(ROADMAP.md Queue 1 item 4.3), refuses",
+        help="self-contained serving: foreground boxes computed in the "
+        "loop from motion maps (no bbox source; with --live-flow, no flow "
+        "tree either)",
     )
     p.add_argument(
         "--flow-dtype", choices=("float32", "bfloat16"), default="float32",

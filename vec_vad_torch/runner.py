@@ -22,8 +22,11 @@ scored in f32, as in the JAX package; `run_test(pixel_criterion=True)`
 adds the pixel-level AUROC (eval.metrics.pixel_level_roc) from the
 dataset's pixel GT (data.readers.load_pixel_masks: avenue's .mat files
 through scipy, the ped layout's .bmp masks through cv2).
-Not ported (ROADMAP.md): computing boxes where no fixture exists and
-`run_precompute_boxes` (item 4.1) and calc-flow's mesh (item 5).
+Where a split has no bbox fixture, `load_split` computes its boxes
+(fore.detector.compute_foreground_bboxes: motion maps on `device`,
+contours on the host) and `run_precompute_boxes` writes the fixtures.
+Not ported (ROADMAP.md): the appearance detectors behind a configured
+`mmdet_checkpoint` (item 4.2) and calc-flow's mesh (item 5).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from vec_vad_torch.data.readers import (
 from vec_vad_torch.data.video_index import VideoIndex
 from vec_vad_torch.device import full_f32, resolve_device, resolve_dtype
 from vec_vad_torch.eval.metrics import pixel_level_roc, save_roc_pr_curve_data
-from vec_vad_torch.fore.detector import PrecomputedDetector
+from vec_vad_torch.fore.detector import PrecomputedDetector, compute_foreground_bboxes
 from vec_vad_torch.models.flownet import load_flownet_checkpoint, make_flownet2
 from vec_vad_torch.pipeline import (
     CubeSet,
@@ -77,9 +80,27 @@ def _dataset_root(cfg: PipelineConfig, base: str) -> str:
     return os.path.join(base, cfg.raw_dataset_dir, cfg.dataset_name)
 
 
-def load_split(cfg: PipelineConfig, base: str, split: str) -> SplitData:
+def _resolve_detector(cfg: PipelineConfig):
+    """Appearance detector for on-the-fly localization: without an mmdet
+    checkpoint, obj_det modes degrade to motion-only (empty appearance
+    detections), as in the JAX package; a configured checkpoint needs the
+    converted Cascade R-CNN, which is not ported."""
+    if not cfg.fore.extraction_mode.startswith("obj_det"):
+        return None
+    if cfg.fore.mmdet_checkpoint:
+        raise NotImplementedError(
+            "the appearance detector behind fore.mmdet_checkpoint (the "
+            "converted Cascade R-CNN) is not ported (ROADMAP.md Queue 1 "
+            "item 4.2); unset it to run motion-only"
+        )
+    return lambda img: (np.zeros((0, 4)), np.zeros(0))
+
+
+def load_split(cfg: PipelineConfig, base: str, split: str,
+               device="cuda") -> SplitData:
     """Assemble one split's inputs: index, lazy frames, optional flow tree,
-    and the foreground boxes of the split's bbox fixture file."""
+    and foreground boxes (the bbox fixture file if present, else computed
+    from the frames with the motion maps on `device`)."""
     root = _dataset_root(cfg, base)
     spec = cfg.dataset
     index = VideoIndex.from_layout(cfg.dataset_name, root, split, spec.file_ext)
@@ -98,13 +119,14 @@ def load_split(cfg: PipelineConfig, base: str, split: str) -> SplitData:
     fixture = os.path.join(
         root, f"bboxes_{split}_{cfg.fore.extraction_mode}.npy"
     )
-    if not os.path.exists(fixture):
-        raise FileNotFoundError(
-            f"no bbox fixture {fixture}: computing foreground boxes from the "
-            "frames is not ported (ROADMAP.md Queue 1 item 4.1)"
+    if os.path.exists(fixture):
+        det = PrecomputedDetector(fixture)
+        boxes = [det.boxes_for_frame(i) for i in range(index.total_frames)]
+    else:
+        boxes = compute_foreground_bboxes(
+            cfg, spec, index, frames=frames, detector=_resolve_detector(cfg),
+            device=device,
         )
-    det = PrecomputedDetector(fixture)
-    boxes = [det.boxes_for_frame(i) for i in range(index.total_frames)]
     return SplitData(index=index, frames=frames, flow=flow, boxes=boxes)
 
 
@@ -207,7 +229,7 @@ def run_train(
     cache, re-extracting on every run."""
     dev = resolve_device(device)
     with full_f32():
-        data = load_split(cfg, base, "train")
+        data = load_split(cfg, base, "train", device=dev)
         cubes = _extract(cfg, base, "train", data, cfg.fore.train_block_mode,
                          resident, dev)
         trainer = make_trainer(cfg, dev)
@@ -241,7 +263,7 @@ def run_test(
     if model is None:
         model = load_vad_model(model_path(cfg, base))
     with full_f32():
-        data = load_split(cfg, base, "test")
+        data = load_split(cfg, base, "test", device=dev)
         cubes = _extract(cfg, base, "test", data, cfg.fore.test_block_mode,
                          resident, dev)
         trainer = make_trainer(cfg, dev)
@@ -404,3 +426,45 @@ def run_calc_flow(
                 )
                 save_flow_tree(flow, index, of_root, root)
                 print(f"{split}: wrote {flow.shape[0]} flow maps to {of_root}")
+
+
+def run_precompute_boxes(
+    cfg: PipelineConfig,
+    base: str,
+    splits: Tuple[str, ...] = ("train", "test"),
+    overwrite: bool = False,
+    device="cuda",
+) -> List[str]:
+    """Generate the per-split bbox fixture files the pipeline auto-detects
+    (`bboxes_{split}_{mode}.npy`, object array of (N_i, 4) float32), the
+    reference's fore_det precomputation products (README.md:51,
+    train.py:52-100 `*_bbox_saved` flags), with the motion maps on
+    `device`. obj_det modes run motion-only, like load_split's on-the-fly
+    path; a configured mmdet_checkpoint refuses (item 4.2)."""
+    dev = resolve_device(device)
+    root = _dataset_root(cfg, base)
+    spec = cfg.dataset
+    written = []
+    for split in splits:
+        out = os.path.join(
+            root, f"bboxes_{split}_{cfg.fore.extraction_mode}.npy"
+        )
+        if os.path.exists(out) and not overwrite:
+            print(f"{out} exists; skipping (--overwrite to regenerate)")
+            continue
+        index = VideoIndex.from_layout(
+            cfg.dataset_name, root, split, spec.file_ext
+        )
+        if index.total_frames == 0:
+            raise FileNotFoundError(f"no frames under {root} for {split!r}")
+        boxes = compute_foreground_bboxes(
+            cfg, spec, index, frames=LazyFrameStack(index),
+            detector=_resolve_detector(cfg), device=dev,
+        )
+        arr = np.empty(len(boxes), dtype=object)
+        for i, b in enumerate(boxes):
+            arr[i] = np.asarray(b, dtype=np.float32).reshape(-1, 4)
+        np.save(out, arr, allow_pickle=True)
+        written.append(out)
+        print(f"wrote {out} ({len(boxes)} frames)")
+    return written

@@ -1,15 +1,18 @@
 """Online serving (vec_vad_tpu/serve): the single-stream scorer over a
-device frame ring, its live-flow two-stream variant, and their camera
-fleets. Each scores one frame at a time (`push`), k frames of a stream
-(`push_many`) or one frame from each of C cameras (`push_tick`), in f32
-with TF32 off or in bf16, with pipelined result downloads, and times its
-own device step (`time_device_step` / `time_device_tick`). The motion
-scorers (MotionStreamingScorer, MotionFlowStreamingScorer) are ROADMAP.md
-Queue 1 item 4.3's."""
+device frame ring, its live-flow two-stream variant, their camera fleets,
+and the self-contained motion scorers, whose foreground boxes come from
+motion maps computed in the loop (MotionStreamingScorer; with FlowNet2 in
+the loop too, MotionFlowStreamingScorer). Each scores one frame at a time
+(`push`), k frames of a stream (`push_many`, not the motion scorers) or
+one frame from each of C cameras (`push_tick`), in f32 with TF32 off or
+in bf16, with pipelined result downloads, and times its own device step
+(`time_device_step` / `time_device_tick`)."""
 
 from vec_vad_torch.serve.fleet import MultiCameraScorer  # noqa: F401
 from vec_vad_torch.serve.live_flow import (  # noqa: F401
     FlowStreamingScorer,
     MultiCameraFlowScorer,
 )
+from vec_vad_torch.serve.motion import MotionStreamingScorer  # noqa: F401
+from vec_vad_torch.serve.motion_flow import MotionFlowStreamingScorer  # noqa: F401
 from vec_vad_torch.serve.streaming import StreamingScorer  # noqa: F401
