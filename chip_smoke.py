@@ -5,7 +5,8 @@ live-flow two-stream slice end to end at full width, trains FlowNetC
 calc-flow, train and test at full width, at dataset scale too, and
 drives the serving surface (push_many, probes, bf16, camera fleets with
 and without live flow, the serve CLI), then computes foreground boxes
-from the frames and serves with them computed in the loop.
+from the frames and serves with them computed in the loop, and runs the
+converted mmdet Cascade R-CNN behind `mmdet_checkpoint`.
 
     python3 chip_smoke.py
 
@@ -166,6 +167,30 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the offline pipeline on compute_foreground_bboxes' boxes (2e-4), a
      1-frame video against StreamingScorer's score of its appearance box
      and -big_number without one.
+ 11. detector: on phase 10's tree (deleted after), the converted mmdet
+     Cascade R-CNN at full width (R101-FPN, 256-channel pyramid, 1,000
+     proposals, three fc-1024 stages, 81 classes) on 480x856 frames
+     resized on the card to 747x1333 on a 768x1344 canvas. (a) a seeded
+     random checkpoint under mmdet v1's names (fore.mmdet_detector.
+     random_cascade_state: 88,492,238 parameters and BN statistics), the
+     regression weights and the other classes' fc_cls rows scaled by 1e-2
+     (boxes near their anchors, person's logit deciding) and the person
+     bias set so that 12 RoIs a frame of 4 test frames clear 0.5, saved under
+     build/; (b) 2 frames on the card and on the CPU: the pyramid, and
+     each stage on the CPU from the card's rois of that stage, within
+     1e-4 of the largest;
+     the CPU's multiclass NMS on the card's boxes equal; the independent
+     runs' proposals matched as sets (0.95), their detections over
+     ap_score_thr matched and reported; (c)
+     `precompute-boxes --splits train` with `mmdet_checkpoint` in the
+     INI through cli.main: frames/s, detect_many's share, peak device
+     memory; (d) `run_train` on that fixture and `run_test` with no test
+     fixture, so `load_split` runs the detector on the test split, to a
+     finite AUROC; over both splits the frames with an appearance box and
+     every frame's boxes leading with its filtered appearance boxes; (e) ms a frame at batch 4 (CUDA
+     events) for the resize and upload, backbone + FPN, RPN with its
+     NMS, the three stages, the multiclass NMS, and the rest of
+     detect_many's wall, and a torch.profiler table of one batch.
 
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
@@ -194,15 +219,18 @@ from vec_vad_torch.config import CompletionConfig, ForegroundConfig, PipelineCon
 from vec_vad_torch.data import readers
 from vec_vad_torch.data.synthetic import make_synthetic_dataset
 from vec_vad_torch.data.video_index import VideoIndex
+from vec_vad_torch.device import full_f32
 from vec_vad_torch.eval import metrics
 from vec_vad_torch.flow import driver
 from vec_vad_torch.flow.harness import FlowHarness
 from vec_vad_torch.flow.trainer import FlowTrainer
+from vec_vad_torch.fore import mmdet_detector as mdet
 from vec_vad_torch.fore import motion as fmotion
 from vec_vad_torch.fore.detector import (
     compute_foreground_bboxes,
     filter_detections,
 )
+from vec_vad_torch.fore.mmdet_import import load_mmdet_state
 from vec_vad_torch.fore.suppress import del_cover_bboxes
 from vec_vad_torch.infer import infer_frame_scores_resident
 from vec_vad_torch.models.completion import init_completion_state, make_completion_net
@@ -324,6 +352,31 @@ FG_WINDOWS = 64  # windows of a motion-map pass: the offline stage's chunk
 FG_SMALL_HW = (240, 360)  # UCSDped2's geometry (k = 3, threshold 18)
 FG_CPU_FRAMES = 32  # test frames whose boxes the CPU computes too
 FG_AP_VIDEO = 24  # frames of test video 1 served with appearance boxes
+# the appearance detector (phase 11) on phase 10's tree: a seeded random
+# R101 Cascade R-CNN under mmdet v1's checkpoint names, at full width (256
+# pyramid channels, 1,000 proposals, three fc-1024 stages, 81 classes)
+DT_DEPTH = 101
+# the Cascade R-CNN's parameters and frozen BN statistics (mmdet v1 names)
+DT_PARAMS = {50: 69_447_886, 101: 88_492_238}
+DT_CKPT = Path(__file__).resolve().parent / "build" / "chip_smoke_cascade_rcnn_r101.pth"
+DT_PERSON = 1  # COCO's person (label 0): the class whose score is calibrated
+DT_OTHER_SCALE = 1e-2  # the regression weights and the other classes' fc_cls rows
+DT_CAL_FRAMES = 4  # test frames the person bias is calibrated on
+DT_TARGET = 12  # RoIs a frame whose person score clears 0.5 before the NMS
+DT_CPU_FRAMES = 2  # frames detected on the card and on the CPU
+DT_BATCH = 4  # compute_foreground_bboxes' detector_batch
+DT_TIMED = 5  # timed batches
+# card vs CPU, both full f32: relative to the largest magnitude of a
+# stage's tensor, each stage fed the card's inputs (cuDNN and oneDNN sum
+# R101's ~100 convolutions in other orders: 4e-6 on the pyramid on an
+# H100; fed its own stage-1 deltas, the CPU's stage 3 drifted 2e-4).
+# The two independent runs' proposals are matched as sets within DT_REL
+# of the canvas (a near-tie may order them apart): 99 % on an H100. Their
+# confident detections are matched likewise and reported, not held: the
+# random weights' three stages carry the proposals' 1e-4 differences
+# into the final boxes (75-83 % within 0.13 px on an H100)
+DT_REL = 1e-4
+DT_MATCHED = 0.95
 # two runs of the same f32 scoring on the card, relative to the largest
 # score: they may differ in a score's last bit (1.2e-4 at scores near
 # 1,900, 6.5e-8 of the largest, on an H100: cuDNN's default algorithms
@@ -1954,14 +2007,27 @@ def serving_surface_phase() -> dict:
     probed, _, probe_ms = push_stream(scorer(), videos, flows, probe=(1, 8))
     (fprobed, _, fprobe_ms), probe_launches = k1_counted(
         lambda: push_stream(flow_scorer(), videos, probe=(1, 8)))
+    # the live-flow probe again under cudnn.deterministic, against an
+    # unprobed stream made likewise: FlowNet2's default cuDNN algorithms may
+    # sum in another order from one live stream to the next (1.12e-6 of the
+    # largest score between the probed and the unprobed stream on an H100,
+    # past RERUN_REL_TOL), the deterministic ones do not
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fdet = push_stream(flow_scorer(), videos)[0]
+        fdet_probed = push_stream(flow_scorer(), videos, probe=(1, 8))[0]
+    finally:
+        torch.backends.cudnn.deterministic = prev
     print(f"serving-surface: (d) time_device_step: StreamingScorer {probe_ms:.3f} ms "
           f"(synchronised push median {med(lat32[first:]):.3f} ms), FlowStreamingScorer "
           f"{fprobe_ms:.3f} ms (push median {med(flat[first:]):.3f} ms); probed "
           f"streams' scores max |diff| / max |score| {rel_diff(probed, base):.3e} and "
-          f"{rel_diff(fprobed, fref):.3e} from unprobed ones (bound {RERUN_REL_TOL})",
+          f"{rel_diff(fprobed, fref):.3e} from unprobed ones, the live flow's under "
+          f"cudnn.deterministic {rel_diff(fdet_probed, fdet):.3e} (bound {RERUN_REL_TOL})",
           flush=True)
     check(rel_diff(probed, base) <= RERUN_REL_TOL
-          and rel_diff(fprobed, fref) <= RERUN_REL_TOL,
+          and rel_diff(fdet_probed, fdet) <= RERUN_REL_TOL,
           "a probe changed the scores that follow it")
 
     # (e) bf16 scoring against f32
@@ -2474,6 +2540,245 @@ def foreground_phase() -> dict:
             + launches["MotionFlowStreamingScorer"], "fwd_err": fwd_err}
 
 
+# -- phase 11: the appearance detector -------------------------------------
+
+
+def write_detector_checkpoint(frames) -> dict:
+    """The seeded random R101 Cascade R-CNN (mdet.random_cascade_state)
+    with the regression weights (rpn_reg, each stage's fc_reg) and the
+    other classes' fc_cls rows scaled by DT_OTHER_SCALE and the person
+    bias of every stage shifted so that DT_TARGET RoIs a frame of
+    `frames` clear a 0.5 person score, saved as an mmcv checkpoint at
+    DT_CKPT. Returns what it printed."""
+    sd = mdet.random_cascade_state(DT_DEPTH, SEED + 20)
+    other = torch.arange(mdet.NUM_CLASSES) != DT_PERSON
+    # random regression weights throw the boxes to the image's borders,
+    # degenerate there; scaled down, they keep near their anchors, as a
+    # trained detector's do
+    sd["rpn_head.rpn_reg.weight"] *= DT_OTHER_SCALE
+    for i in range(3):
+        sd[f"bbox_head.{i}.fc_cls.weight"][other] *= DT_OTHER_SCALE
+        sd[f"bbox_head.{i}.fc_reg.weight"] *= DT_OTHER_SCALE
+    n_params = sum(v.numel() for v in sd.values())
+    det = mdet.MMDetCascadeDetector(load_mmdet_state(mdet.CascadeRCNN(DT_DEPTH), sd),
+                                    device="cuda")
+    st = {}
+    det.run(frames, stages=st)
+    m = (sum(st["logits"]) / 3.0)[st["valid"]]
+    # p_person > 0.5 where its mean logit beats the log-sum-exp of the others
+    margin = m[:, DT_PERSON] - torch.logsumexp(m[:, other.to(m.device)], -1)
+    top = torch.sort(margin, descending=True)[0]
+    shift = -float(top[DT_TARGET * len(frames)])
+    for i in range(3):
+        sd[f"bbox_head.{i}.fc_cls.bias"][DT_PERSON] += shift
+    DT_CKPT.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"state_dict": sd, "meta": {"seed": SEED + 20, "person_shift": shift}},
+               DT_CKPT)
+    del det
+    return {"params": n_params, "shift": shift, "valid": int(m.shape[0])}
+
+
+def match_rows(a, b, tol) -> float:
+    """Share of the rows of a (n, d) found in b (m, d) within `tol` on
+    every column."""
+    if a.shape[0] == 0:
+        return 1.0
+    d = (a[:, None, :] - b[None, :, :]).abs().amax(-1)
+    return float((d.amin(1) <= tol).float().mean()) if b.shape[0] else 0.0
+
+
+def detector_phase() -> None:
+    """The converted Cascade R-CNN on phase 10's tree (module docstring,
+    phase 11, a-e)."""
+    cfg, mc = FG_CFG, FG_CFG.model
+    spec = cfg.dataset
+    dev = runner.resolve_device("cuda")
+    base = str(FG_BASE)
+    raw_root = FG_BASE / cfg.raw_dataset_dir / cfg.dataset_name
+    te_index = VideoIndex.from_layout(cfg.dataset_name, str(raw_root), "test", ".npy")
+    te_frames = readers.LazyFrameStack(te_index)
+    n_tr, n_te = (sum(FG_LENGTHS[s]) for s in ("Train", "Test"))
+
+    # (a) the checkpoint
+    t0 = time.perf_counter()
+    rows = np.linspace(0, n_te - 1, DT_CAL_FRAMES).astype(int)
+    made = write_detector_checkpoint(np.stack([np.asarray(te_frames[r]) for r in rows]))
+    print(f"detector: (a) R{DT_DEPTH} Cascade R-CNN, {made['params']:,} parameters and "
+          f"BN statistics (seed {SEED + 20}); person bias shifted by {made['shift']:.4f} so "
+          f"that {DT_TARGET} RoIs a frame of {DT_CAL_FRAMES} test frames clear 0.5 "
+          f"({made['valid']} valid proposals); {DT_CKPT.stat().st_size / 2**20:.1f} MiB "
+          f"written in {time.perf_counter() - t0:.1f} s (set-up)", flush=True)
+    check(made["params"] == DT_PARAMS[DT_DEPTH], f"{made['params']} parameters")
+
+    # (b) the card against the CPU on DT_CPU_FRAMES frames
+    card = mdet.MMDetCascadeDetector.from_checkpoint(str(DT_CKPT), device="cuda")
+    cpu = mdet.MMDetCascadeDetector.from_checkpoint(str(DT_CKPT), device="cpu")
+    check(card.model.depth == DT_DEPTH, f"inferred depth {card.model.depth}")
+    two = np.stack([np.asarray(te_frames[r]) for r in range(DT_CPU_FRAMES)])
+    st_g, st_c = {}, {}
+    (gb, gs, gl, gok), scale = card.run(two, stages=st_g)
+    t0 = time.perf_counter()
+    (cb, cs, cl, cok), _ = cpu.run(two, stages=st_c)
+    cpu_s = time.perf_counter() - t0
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    pyr = max(rel(a, b) for a, b in zip(st_g["pyramid"], st_c["pyramid"]))
+    img_hw = mdet.rescale_shape(*FG_HW, *card.img_scale)[:2]
+    with torch.no_grad(), full_f32():
+        # each stage on the CPU from the card's rois of that stage
+        stage_rel = []
+        for i, head in enumerate(cpu.model.bbox_head):
+            logits, deltas = head(mdet.roi_align_pyramid(st_c["pyramid"][:4],
+                                                         st_g["rois"][i].cpu()))
+            stage_rel.append(max(rel(st_g["logits"][i], logits.reshape(st_g["logits"][i].shape)),
+                                 rel(st_g["deltas"][i], deltas.reshape(st_g["deltas"][i].shape))))
+        bb = mdet.delta2bbox(st_g["rois"][-1].cpu(), st_g["deltas"][-1].cpu(),
+                             mdet.STAGE_STDS[-1], img_hw)
+        forced = mdet.multiclass_nms(st_g["bboxes"].cpu(), st_g["scores"].cpu(),
+                                     st_g["valid"].cpu(), 0.05, 0.5, 100)
+    box_rel = rel(st_g["bboxes"], bb)
+    for g, w in zip((gb, gs, gl, gok), forced):
+        check(torch.equal(g.cpu(), w), "multiclass NMS on the card's boxes differs on the CPU")
+    tol = DT_REL * max(img_hw)  # px
+    prop, dets = [], []
+    for i in range(DT_CPU_FRAMES):
+        pg, pc = (s["proposals"][i][s["valid"][i]].cpu() for s in (st_g, st_c))
+        prop.append(min(match_rows(pg, pc, tol), match_rows(pc, pg, tol)))
+        # the detections over ap_score_thr as (label * 1e4, score *
+        # max(img_hw), box): the same label, the score within DT_REL and
+        # the box within tol
+        row = lambda b, s, l, ok: (lambda k: torch.cat(
+            [l[k, None].float() * 1e4, s[k, None] * max(img_hw), b[k]], 1).cpu())(
+            ok & (s > spec.ap_score_thr))
+        a, c = row(gb[i], gs[i], gl[i], gok[i]), row(cb[i], cs[i], cl[i], cok[i])
+        dets.append(min(match_rows(a, c, tol), match_rows(c, a, tol)))
+    n_det = [int(x) for x in (gok & (gs > spec.ap_score_thr)).sum(1)]
+    print(f"detector: (b) {DT_CPU_FRAMES} frames at {FG_HW} -> {img_hw} (canvas "
+          f"{tuple(st_g['pyramid'][0].shape[2:])} x 4): card against the CPU ({cpu_s:.1f} s "
+          f"there): pyramid max |diff| / max {pyr:.3e}; each stage on the CPU from the "
+          f"card's rois {', '.join(f'{r:.3e}' for r in stage_rel)} (logits and deltas), "
+          f"the final boxes {box_rel:.3e}; the CPU's multiclass NMS on the card's boxes "
+          f"equal; independent runs: proposals matched {prop}, detections over "
+          f"{spec.ap_score_thr} matched {dets} of {n_det} (of {gok.sum(1).tolist()} "
+          f"detections) within {tol:.3f} px (bounds {DT_REL}, {DT_MATCHED})", flush=True)
+    check(pyr <= DT_REL and max(stage_rel) <= DT_REL and box_rel <= DT_REL,
+          f"card vs CPU: pyramid {pyr}, stages {stage_rel}, boxes {box_rel}")
+    check(min(prop) >= DT_MATCHED, f"proposals matched {prop}")
+    del cpu, st_c, st_g
+
+    # (c) precompute-boxes with the checkpoint through the CLI (the train
+    # split), then (d) train, and test with no test fixture: load_split
+    # runs the detector on the test split itself
+    ini = FG_BASE / "det.cfg"
+    ini.write_text(
+        f"[shared_parameters]\ndataset_name = {cfg.dataset_name}\n"
+        f"foreground_extraction_mode = obj_det_with_motion\nmmdet_checkpoint = {DT_CKPT}\n"
+        f"[{cfg.dataset_name}]\npatch_size = {cfg.fore.patch_size}\n"
+        f"[SelfComplete]\nnf = {mc.nf}\ncontext_frame_num = {mc.context_frame_num}\n"
+        f"context_of_num = {mc.context_of_num}\nuseFlow = {mc.use_flow}\n")
+    dcfg = config.load_ini_config(str(ini))
+    check(dcfg.fore.mmdet_checkpoint == str(DT_CKPT), "the INI's mmdet_checkpoint")
+    (raw_root / "bboxes_test_obj_det_with_motion.npy").unlink(missing_ok=True)  # phase 10's
+    raw, det_s, computed, clock = [], [0.0], [], {}
+    many = mdet.MMDetCascadeDetector.detect_many
+    compute = runner.compute_foreground_bboxes
+
+    def recorded(self, frames, marks=None):
+        t = time.perf_counter()
+        out = many(self, frames, marks)
+        det_s[0] += time.perf_counter() - t
+        raw.extend(out)
+        return out
+
+    def computing(*a, **k):
+        out = compute(*a, timings=clock, **k)
+        computed.append(out)
+        return out
+
+    runner.compute_foreground_bboxes = computing
+    mdet.MMDetCascadeDetector.detect_many = recorded
+    runner._mmdet_detector.cache_clear()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    try:
+        _, wall = timed(lambda: serve_cli(["precompute-boxes", "--overwrite", "--splits",
+                                           "train", "--config", str(ini), "--base", base]))
+        pre_s, pre_clock = det_s[0], sum(clock.values())
+        (model, _), train_s = timed(lambda: runner.run_train(dcfg, base, seed=SEED,
+                                                             device=dev))
+        res, test_s = timed(lambda: runner.run_test(dcfg, base, model=model, device=dev))
+    finally:
+        runner.compute_foreground_bboxes = compute
+        mdet.MMDetCascadeDetector.detect_many = many
+    peak = torch.cuda.max_memory_allocated()
+    check(not kernels.launch_counts.get("correlation"), "K1 in the detector's phase")
+    check(len(computed) == 2 and [len(c) for c in computed] == [n_tr, n_te],
+          f"boxes computed for {[len(c) for c in computed]} frames")
+    fixture = np.load(raw_root / "bboxes_train_obj_det_with_motion.npy", allow_pickle=True)
+    check(len(fixture) == n_tr and all(np.array_equal(np.asarray(b, np.float32), f)
+                                       for b, f in zip(computed[0], fixture)),
+          "the train fixture differs from the boxes precompute-boxes computed")
+    n = n_tr + n_te
+    # the padded tail's results are dropped: raw holds ceil(n / 4) * 4 a split
+    kept = raw[:n_tr] + raw[-(-n_tr // DT_BATCH) * DT_BATCH:][:n_te]
+    boxes = list(computed[0]) + list(computed[1])
+    check(len(kept) == n, f"{len(raw)} detector results for {n} frames")
+    ap = [del_cover_bboxes(filter_detections(b, s, spec.ap_score_thr, spec.ap_min_area),
+                           spec.cover_thr) for b, s, _ in kept]
+    for a, b in zip(ap, boxes):
+        check(np.array_equal(np.asarray(a, np.float32), np.asarray(b, np.float32)[:a.shape[0]]),
+              "a frame's boxes do not lead with its appearance boxes")
+    n_ap = np.array([a.shape[0] for a in ap])
+    counts = np.array([b.shape[0] for b in boxes])
+    raw_n = np.array([len(s) for _, s, _ in kept])
+    over = np.array([int((s > spec.ap_score_thr).sum()) for _, s, _ in kept])
+    print(f"detector: (c) precompute-boxes --splits train with the checkpoint: {n_tr} "
+          f"frames in {wall:.2f} s, {n_tr / wall:.1f} frames/s; detect_many {pre_s:.2f} s "
+          f"({1e3 * pre_s / n_tr:.2f} ms a frame at batch {DT_BATCH}), motion stage "
+          f"{pre_clock:.2f} s; peak device memory (the phase) {peak / 2**20:.1f} MiB; over "
+          f"both splits: raw detections a frame mean {raw_n.mean():.1f}, over ap_score_thr "
+          f"{spec.ap_score_thr} {over.mean():.2f}; appearance boxes after the filters a "
+          f"frame mean {n_ap.mean():.2f} max {n_ap.max()}, frames with one or more "
+          f"{(n_ap > 0).sum()} of {n}; boxes a frame with the motion boxes mean "
+          f"{counts.mean():.2f}", flush=True)
+    check((n_ap > 0).sum() > 0, "no frame has an appearance box")
+
+    block = model.blocks[(0, 0, 0)]
+    per_epoch = -(-block.raw_scores.size // mc.batch_size)
+    first, last = block.losses[:per_epoch].mean(), block.losses[-per_epoch:].mean()
+    check(np.isfinite(block.losses).all() and last < first, f"losses {first} -> {last}")
+    fs = res["frame_scores"]
+    check(fs.shape == (n_te,) and np.isfinite(fs).all() and np.isfinite(res["auroc"]),
+          f"test: {fs.shape} frame scores, AUROC {res['auroc']}")
+    print(f"detector: (d) run_train {block.raw_scores.size} cubes, {block.losses.size} "
+          f"steps, {train_s:.2f} s (loss {first:.4f} -> {last:.4f}); run_test {test_s:.2f} "
+          f"s with load_split detecting the {n_te} test frames ({det_s[0] - pre_s:.2f} s "
+          f"of detect_many), AUROC {res['auroc']:.6f}", flush=True)
+
+    # (e) where a frame's time goes, at the precompute batch
+    det = runner._mmdet_detector(str(DT_CKPT), str(dev))
+    batch = np.stack([np.asarray(te_frames[r]) for r in range(DT_BATCH)])
+    det.detect_many(batch)  # warm
+    sections, host = {}, []
+    for _ in range(DT_TIMED):
+        marks = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        det.detect_many(batch, marks=marks)
+        wall_ms = (time.perf_counter() - t) * 1e3
+        for (_, a), (name, e) in zip(marks, marks[1:]):
+            sections[name] = sections.get(name, 0.0) + a.elapsed_time(e) / DT_BATCH / DT_TIMED
+        host.append((wall_ms - marks[0][1].elapsed_time(marks[-1][1])) / DT_BATCH)
+    print(f"detector: (e) ms a frame at batch {DT_BATCH} (CUDA events, mean of "
+          f"{DT_TIMED} batches): " + ", ".join(f"{k} {v:.3f}" for k, v in sections.items())
+          + f"; the rest of detect_many's wall (downloads, the host's part) "
+          f"{np.mean(host):.3f}", flush=True)
+    check(len(sections) == 5 and all(v > 0 for v in sections.values()),
+          f"sections {sections}")
+    profile_calls(f"detector: (e) detect_many of {DT_BATCH} frames",
+                  lambda: det.detect_many(batch))
+    DT_CKPT.unlink()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -2617,8 +2922,12 @@ def main() -> int:
 
     # -- foreground phase: motion boxes, precompute-boxes, motion serving ----
     fg = foreground_phase()
+    t_phase = phase_done("foreground", t_phase)
+
+    # -- detector phase: the converted Cascade R-CNN on phase 10's tree -----
+    detector_phase()
     shutil.rmtree(FG_BASE, ignore_errors=True)
-    phase_done("foreground", t_phase)
+    phase_done("detector", t_phase)
 
     rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"],
                                calc["fwd_err"], surf["fwd_err"], fg["fwd_err"]))

@@ -551,3 +551,118 @@ def test_motion_scorers_on_card_match_cpu(cuda):
         model, spec=spec, flow_net=make_flownet2(0, device="cpu"),
         flow_model_hw=(128, 128), device="cpu"), False)
     assert _scored_rel(got, want) <= 1e-3
+
+
+def _nms_boxes(seed, shape):
+    """Boxes (*shape, 4) and scores (*shape) with few score levels (ties),
+    repeated boxes and masked (-inf) candidates."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 200, shape + (2,))
+    boxes = np.concatenate([xy, xy + rng.uniform(4, 80, shape + (2,))], -1).astype(np.float32)
+    half = shape[-1] // 2
+    boxes[..., half:2 * half, :] = boxes[..., :half, :]
+    scores = (np.round(rng.uniform(0, 1, shape) * 8) / 8).astype(np.float32)
+    scores[rng.uniform(0, 1, shape) < 0.05] = -np.inf
+    return torch.from_numpy(boxes), torch.from_numpy(scores)
+
+
+@pytest.mark.cuda
+def test_detector_nms_on_card_equals_cpu(cuda):
+    """The detector's greedy NMS sweep and its multiclass step on the card
+    equal the CPU's, ties and masked candidates included."""
+    from vec_vad_torch.fore import mmdet_detector as det
+
+    boxes, scores = _nms_boxes(0, (2, 5, 400))
+    for thr, n_pick in ((0.7, 300), (0.5, 500)):
+        got = det.nms_pick(boxes.to(cuda), scores.to(cuda), thr, n_pick)
+        want = det.nms_pick(boxes, scores, thr, n_pick)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    boxes, _ = _nms_boxes(1, (2, 300))
+    probs = torch.softmax(torch.from_numpy(np.random.default_rng(2).normal(
+        0, 3, (2, 300, 81)).astype(np.float32)), -1)
+    valid = torch.arange(300)[None].expand(2, 300) < torch.tensor([[250], [300]])
+    want = det.multiclass_nms(boxes, probs, valid, 0.05, 0.5, 100)
+    got = det.multiclass_nms(boxes.to(cuda), probs.to(cuda), valid.to(cuda), 0.05, 0.5, 100)
+    assert want[3].sum() > 20
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_detector_roi_align_pyramid_on_card(cuda):
+    """RoIAlign v1, each RoI on its own level, on the card against the CPU
+    (the same products summed in the same order: 1e-6)."""
+    from vec_vad_torch.fore import mmdet_detector as det
+
+    rng = np.random.default_rng(3)
+    pyr = [torch.from_numpy(rng.normal(size=(2, 16, 48 // 2 ** i, 64 // 2 ** i))
+                            .astype(np.float32)) for i in range(4)]
+    xy = rng.uniform(-10, 250, (2, 40, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + np.exp(rng.uniform(np.log(8), np.log(900), (2, 40, 2)))], -1)
+        .astype(np.float32))
+    want = det.roi_align_pyramid(pyr, boxes)
+    got = det.roi_align_pyramid([p.to(cuda) for p in pyr], boxes.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_detector_preprocess_on_card_equals_cpu(cuda):
+    """The cv2-form resize (integer arithmetic) and the normalisation of a
+    ShanghaiTech-sized batch on the card equal the CPU's."""
+    from vec_vad_torch.fore import mmdet_detector as det
+
+    frames = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (2, 480, 856, 3), dtype=np.uint8))
+    want, hw, scale = det.prepare_on_device(frames)
+    got, g_hw, g_scale = det.prepare_on_device(frames.to(cuda))
+    assert (hw, scale) == (g_hw, g_scale) == ((747, 1333), scale)
+    assert tuple(got.shape) == (2, 3, 768, 1344)
+    assert torch.equal(det.resize_linear_u8(frames.to(cuda), 747, 1333).cpu(),
+                       det.resize_linear_u8(frames, 747, 1333))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_small_detect_on_card_matches_cpu(cuda):
+    """A random R50 Cascade R-CNN (random_cascade_state) at 48x64 frames
+    with img_scale (133, 80) on the card against the CPU: the pyramid and
+    each stage's logits (fed the card's rois) within 1e-4 of the largest,
+    the CPU's multiclass NMS on the card's boxes equal to the card's, the
+    proposals within 1e-3, and the same detections from the independent
+    runs (labels, boxes within 1e-2 px, scores 1e-3)."""
+    from vec_vad_torch.fore import mmdet_detector as det
+    from vec_vad_torch.fore.mmdet_import import load_mmdet_state
+
+    sd = det.random_cascade_state(50, seed=3)
+    cfg = dict(nms_pre=200, nms_post=100, max_num=100, max_per_img=20, img_scale=(133, 80))
+    dets = {d: det.MMDetCascadeDetector(load_mmdet_state(det.CascadeRCNN(50), sd),
+                                        device=d, **cfg) for d in ("cpu", cuda)}
+    frames = np.random.default_rng(5).integers(0, 256, (2, 48, 64, 3), dtype=np.uint8)
+    st = {d: {} for d in dets}
+    out = {d: dets[d].run(frames, stages=st[d])[0] for d in dets}
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    for a, b in zip(st[cuda]["pyramid"], st["cpu"]["pyramid"]):
+        assert rel(a, b) <= 1e-4
+    # the RPN's exp in delta2bbox carries the pyramid's ~1e-6 into the
+    # proposals (1.1e-4 of the largest coordinate seen on an H100)
+    assert rel(st[cuda]["proposals"], st["cpu"]["proposals"]) <= 1e-3
+    with torch.no_grad():  # each stage on the CPU from the card's rois
+        for i, head in enumerate(dets["cpu"].model.bbox_head):
+            logits, _ = head(det.roi_align_pyramid(st["cpu"]["pyramid"][:4],
+                                                   st[cuda]["rois"][i].cpu()))
+            assert rel(st[cuda]["logits"][i], logits.reshape(st[cuda]["logits"][i].shape)) <= 1e-4
+        forced = det.multiclass_nms(st[cuda]["bboxes"].cpu(), st[cuda]["scores"].cpu(),
+                                    st[cuda]["valid"].cpu(), 0.05, 0.5, 20)
+    for g, w in zip(out[cuda], forced):  # the CPU's NMS on the card's boxes
+        assert torch.equal(g.cpu(), w)
+    # the independent runs: the three stages carry the proposals' 1e-4
+    # into the scores (1.6e-4 relative seen on an H100)
+    (gb, gs, gl, gok), (wb, ws, wl, wok) = out[cuda], out["cpu"]
+    assert torch.equal(gok.cpu(), wok) and torch.equal(gl.cpu(), wl) and wok.sum() > 0
+    torch.testing.assert_close(gs.cpu()[wok], ws[wok], rtol=1e-3, atol=1e-7)
+    torch.testing.assert_close(gb.cpu()[wok], wb[wok], rtol=0, atol=1e-2)

@@ -193,6 +193,13 @@ def test_host_copies_match_jax_package():
                       "save_roc_pr_curve_data", "_PIXEL_DEVICE_CHUNK"]),
     ("ops.stc", ["pad_boxes"]),
     ("fore.detector", ["PrecomputedDetector"]),
+    ("fore.mmdet_import", ["RESNET_STAGES", "BOTTLENECK_EXPANSION", "strip_checkpoint",
+                           "infer_depth"]),
+    ("fore.mmdet_detector", ["ANCHOR_RATIOS", "ANCHOR_SCALES", "ANCHOR_STRIDES",
+                             "STAGE_STDS", "WH_RATIO_CLIP", "FINEST_SCALE",
+                             "NUM_CLASSES", "base_anchors", "grid_anchors"]),
+    ("fore.cascade_detector", ["STRIDES", "LEVEL_EDGES", "ROI_SIZE", "STAGE_IOUS",
+                               "make_level_targets"]),
     ("runtime.artifacts", ["_flatten", "_unflatten", "save_pytree_npz",
                            "load_pytree_npz", "fingerprint", "ArtifactCache"]),
 ])

@@ -686,11 +686,12 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
 
 def test_left_out_routes_refuse_by_name(tmp_path):
     """What the port leaves out raises and names its ROADMAP item: the
-    parallel GridTrainer (item 2.8), the appearance detector behind a
-    configured `mmdet_checkpoint` (item 4.2) and a fleet sharded over a
-    device mesh (item 5). Computing boxes without a bbox fixture (item
-    4.1) and `serve --motion` (item 4.3) are ported and no longer refuse
-    (tests/test_torch_foreground.py, tests/test_torch_motion_serving.py)."""
+    parallel GridTrainer (item 2.8) and a fleet sharded over a device mesh
+    (item 5). Computing boxes without a bbox fixture (item 4.1), `serve
+    --motion` (item 4.3) and the appearance detector behind a configured
+    `mmdet_checkpoint` (item 4.2) are ported and no longer refuse
+    (tests/test_torch_foreground.py, tests/test_torch_motion_serving.py,
+    tests/test_torch_detectors.py)."""
     from vec_vad_torch.serve import MultiCameraFlowScorer, MultiCameraScorer
 
     jcfg, tcfg = _configs()
@@ -701,17 +702,6 @@ def test_left_out_routes_refuse_by_name(tmp_path):
         t_pipe.train_model(tcfg, cubes, parallel_blocks=True, device="cpu")
     with pytest.raises(FileNotFoundError):
         t_runner.load_split(tcfg, str(tmp_path), "train", device="cpu")
-    _register()
-    ws = str(tmp_path / "ws")
-    _write_workspace(ws)
-    os.remove(os.path.join(ws, "raw_datasets", DATASET,
-                           "bboxes_train_obj_det_with_motion.npy"))
-    mmdet = tcfg.replace(fore=dataclasses.replace(
-        tcfg.fore, mmdet_checkpoint=str(tmp_path / "cascade_rcnn.pth")))
-    with pytest.raises(NotImplementedError, match="item 4.2"):
-        t_runner.load_split(mmdet, ws, "train", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4.2"):
-        t_runner.run_precompute_boxes(mmdet, ws, device="cpu")
     for fleet, kw in ((MultiCameraScorer, {}),
                       (MultiCameraFlowScorer, {"flow_net": None})):
         with pytest.raises(NotImplementedError, match="item 5"):

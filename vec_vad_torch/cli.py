@@ -18,8 +18,9 @@ device (no cube cache) and test's `--pixel-criterion` adds the
 pixel-level AUROC from the dataset's pixel GT (avenue's .mat files; the
 ped layout's .bmp masks need cv2). `precompute-boxes` writes the
 `bboxes_{split}_{mode}.npy` fixtures from the frames (motion maps on the
-device, contours on the host; without a fixture, train and test compute
-the same boxes). `serve` streams the test split through the online
+device, contours on the host, and the config's `mmdet_checkpoint`, the
+converted Cascade R-CNN, on the device for the obj_det modes; without a
+fixture, train and test compute the same boxes). `serve` streams the test split through the online
 scorers (`--live-flow`: flow computed in the loop; `--motion`: boxes
 computed in the loop, with `--live-flow` both; `--cameras C`: a fleet).
 calc-flow has no `--no-mesh`: the JAX package's data-parallel mesh is not
@@ -593,7 +594,9 @@ def main(argv=None) -> int:
     p = sub.add_parser(
         "precompute-boxes",
         help="generate bboxes_{split}_{mode}.npy fixtures from the frames "
-        "(motion maps on the device, contours on the host)",
+        "(motion maps on the device, contours on the host; obj_det modes "
+        "run the config's mmdet_checkpoint, the converted Cascade R-CNN, "
+        "on the device, or motion-only without one)",
     )
     _add_common(p)
     p.add_argument("--splits", default="train,test")

@@ -1,8 +1,9 @@
 """Foreground localization (vec_vad_tpu/fore): motion maps on the device
 with host contours, overlap suppression, the grid-patch and whole-frame
-modes, and the split-level driver over the four extraction modes. The
-appearance detectors (Cascade R-CNN and its mmdet import) are ROADMAP.md
-Queue 1 item 4.2's."""
+modes, the split-level driver over the four extraction modes, and the
+appearance detectors: the mmdet Cascade R-CNN behind a checkpoint
+(mmdet_import, mmdet_detector) and the trainable cascade and
+CenterNet-lite detectors (cascade_detector, centernet_detector)."""
 
 from vec_vad_torch.fore.suppress import del_cover_bboxes  # noqa: F401
 from vec_vad_torch.fore.patches import get_patch_boxes, full_frame_box  # noqa: F401
@@ -12,4 +13,14 @@ from vec_vad_torch.fore.detector import (  # noqa: F401
     PrecomputedDetector,
     filter_detections,
     compute_foreground_bboxes,
+)
+from vec_vad_torch.fore.cascade_detector import (  # noqa: F401
+    CascadeDetector,
+    CascadeFPNNet,
+    train_cascade_detector,
+)
+from vec_vad_torch.fore.mmdet_import import (  # noqa: F401
+    BackboneFPN,
+    load_backbone_fpn,
+    load_mmdet_state,
 )

@@ -13,8 +13,9 @@ The appearance source is a narrow interface:
 `compute_foreground_bboxes` drives the four extraction modes of
 train.py:62-95 / test.py:61-90 over a whole split, with the motion maps
 computed on `device` and the contours on the host. The appearance
-detectors themselves (Cascade R-CNN, its mmdet checkpoint import) are
-ROADMAP.md Queue 1 item 4.2's.
+detectors themselves are fore/mmdet_detector.py (the mmdet Cascade R-CNN
+behind a checkpoint, with `detect_many`), fore/cascade_detector.py and
+fore/centernet_detector.py.
 """
 
 from __future__ import annotations

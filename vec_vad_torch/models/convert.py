@@ -15,6 +15,14 @@ return a torch state dict for the port's module:
   * flownet2_from_jax — the FlowNet2 tree -> FlowNet2, the inverse of
     vec_vad_tpu/models/flownet/convert.py:31-36 (HWIO -> OIHW for convs,
     (kh, kw, I, O) -> (I, O, kh, kw) for transposed convs).
+  * centernet_from_jax / cascade_from_jax — the trainable detectors'
+    flax params -> fore.centernet_detector.CenterNetLite /
+    fore.cascade_detector.CascadeFPNNet: HWIO -> OIHW, Dense (in, out) ->
+    (out, in); CenterNetLite's ConvTranspose kernel flipped in both
+    spatial axes (flax's transpose_kernel=False) to (I, O, kh, kw), and
+    each RefineHead's first Dense rows from flax's (S, S, C) flatten order
+    to torch's (C, S, S). The mmdet detector needs no carry function: both
+    packages load the same mmdet-named checkpoint.
 """
 
 from __future__ import annotations
@@ -154,4 +162,63 @@ def flownet2_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             visit(sub, path + [key])
 
     visit(variables["params"], [])
+    return sd
+
+
+def _conv(tree) -> Dict[str, torch.Tensor]:
+    out = {"weight": _t(np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))}
+    if "bias" in tree:
+        out["bias"] = _t(tree["bias"])
+    return out
+
+
+def _dense(tree, rows=None) -> Dict[str, torch.Tensor]:
+    k = np.asarray(tree["kernel"])
+    if rows is not None:
+        k = k[rows]
+    return {"weight": _t(k.T), "bias": _t(tree["bias"])}
+
+
+def _put(sd, name, parts):
+    for key, v in parts.items():
+        sd[f"{name}.{key}"] = v
+
+
+def centernet_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for fore.centernet_detector.CenterNetLite from the flax
+    CenterNetLite's params (vec_vad_tpu/fore/jax_detector.py)."""
+    sd = {}
+    names = ["conv1", "conv2", "conv3", "conv4", "feat", "heat", "size", "offset"]
+    for i, name in enumerate(names):
+        _put(sd, name, _conv(params[f"Conv_{i}"]))
+    ct = params["ConvTranspose_0"]
+    k = np.asarray(ct["kernel"])[::-1, ::-1]  # (kh, kw, I, O), flipped
+    sd["up.weight"] = _t(k.transpose(2, 3, 0, 1))
+    sd["up.bias"] = _t(ct["bias"])
+    return sd
+
+
+def cascade_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for fore.cascade_detector.CascadeFPNNet from the flax
+    CascadeFPNNet's variables (vec_vad_tpu/fore/cascade_detector.py)."""
+    p = variables["params"]
+    sd = {}
+    bb = p["backbone"]
+    for b in range(5):  # each block's two convs: flax Conv_{2b}, Conv_{2b+1}
+        for j in (0, 1):
+            _put(sd, f"backbone.blocks.{b}.{j}", _conv(bb[f"Conv_{2 * b + j}"]))
+    for i in range(4):
+        _put(sd, f"backbone.laterals.{i}", _conv(bb[f"Conv_{10 + i}"]))
+        _put(sd, f"backbone.smooth.{i}", _conv(bb[f"Conv_{14 + i}"]))
+    for i, name in enumerate(["conv", "heat", "size", "offset"]):
+        _put(sd, f"head.{name}", _conv(p["head"][f"Conv_{i}"]))
+    for stage in ("refine1", "refine2"):
+        r = p[stage]
+        c = np.asarray(p["head"]["Conv_0"]["kernel"]).shape[2]  # pyramid channels
+        s = int(round((np.asarray(r["Dense_0"]["kernel"]).shape[0] // c) ** 0.5))
+        rows = np.arange(s * s * c).reshape(s, s, c).transpose(2, 0, 1).reshape(-1)
+        _put(sd, f"{stage}.fc1", _dense(r["Dense_0"], rows))
+        _put(sd, f"{stage}.fc2", _dense(r["Dense_1"]))
+        _put(sd, f"{stage}.delta", _dense(r["Dense_2"]))
+        _put(sd, f"{stage}.score", _dense(r["Dense_3"]))
     return sd

@@ -24,13 +24,15 @@ dataset's pixel GT (data.readers.load_pixel_masks: avenue's .mat files
 through scipy, the ped layout's .bmp masks through cv2).
 Where a split has no bbox fixture, `load_split` computes its boxes
 (fore.detector.compute_foreground_bboxes: motion maps on `device`,
-contours on the host) and `run_precompute_boxes` writes the fixtures.
-Not ported (ROADMAP.md): the appearance detectors behind a configured
-`mmdet_checkpoint` (item 4.2) and calc-flow's mesh (item 5).
+contours on the host, and with a configured `mmdet_checkpoint` the
+converted Cascade R-CNN on `device`, fore.mmdet_detector) and
+`run_precompute_boxes` writes the fixtures. Not ported (ROADMAP.md):
+calc-flow's mesh (item 5).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -80,19 +82,26 @@ def _dataset_root(cfg: PipelineConfig, base: str) -> str:
     return os.path.join(base, cfg.raw_dataset_dir, cfg.dataset_name)
 
 
-def _resolve_detector(cfg: PipelineConfig):
-    """Appearance detector for on-the-fly localization: without an mmdet
-    checkpoint, obj_det modes degrade to motion-only (empty appearance
-    detections), as in the JAX package; a configured checkpoint needs the
-    converted Cascade R-CNN, which is not ported."""
+@functools.lru_cache(maxsize=2)
+def _mmdet_detector(checkpoint_path: str, device: str):
+    """The converted-checkpoint appearance detector on `device`, memoized
+    on (path, device) so the train and test splits share one loaded
+    model."""
+    from vec_vad_torch.fore.mmdet_detector import MMDetCascadeDetector
+
+    return MMDetCascadeDetector.from_checkpoint(checkpoint_path, device=device)
+
+
+def _resolve_detector(cfg: PipelineConfig, device="cuda"):
+    """Appearance detector for on-the-fly localization: a configured mmdet
+    checkpoint powers the appearance stage (the reference's
+    fore_det/inference.py path), on `device`; without one, obj_det modes
+    degrade to motion-only (empty appearance detections), as in the JAX
+    package."""
     if not cfg.fore.extraction_mode.startswith("obj_det"):
         return None
     if cfg.fore.mmdet_checkpoint:
-        raise NotImplementedError(
-            "the appearance detector behind fore.mmdet_checkpoint (the "
-            "converted Cascade R-CNN) is not ported (ROADMAP.md Queue 1 "
-            "item 4.2); unset it to run motion-only"
-        )
+        return _mmdet_detector(cfg.fore.mmdet_checkpoint, str(resolve_device(device)))
     return lambda img: (np.zeros((0, 4)), np.zeros(0))
 
 
@@ -124,8 +133,8 @@ def load_split(cfg: PipelineConfig, base: str, split: str,
         boxes = [det.boxes_for_frame(i) for i in range(index.total_frames)]
     else:
         boxes = compute_foreground_bboxes(
-            cfg, spec, index, frames=frames, detector=_resolve_detector(cfg),
-            device=device,
+            cfg, spec, index, frames=frames,
+            detector=_resolve_detector(cfg, device), device=device,
         )
     return SplitData(index=index, frames=frames, flow=flow, boxes=boxes)
 
@@ -439,8 +448,9 @@ def run_precompute_boxes(
     (`bboxes_{split}_{mode}.npy`, object array of (N_i, 4) float32), the
     reference's fore_det precomputation products (README.md:51,
     train.py:52-100 `*_bbox_saved` flags), with the motion maps on
-    `device`. obj_det modes run motion-only, like load_split's on-the-fly
-    path; a configured mmdet_checkpoint refuses (item 4.2)."""
+    `device`. obj_det modes run the converted Cascade R-CNN of a configured
+    mmdet_checkpoint on `device`, or motion-only without one, like
+    load_split's on-the-fly path."""
     dev = resolve_device(device)
     root = _dataset_root(cfg, base)
     spec = cfg.dataset
@@ -459,7 +469,7 @@ def run_precompute_boxes(
             raise FileNotFoundError(f"no frames under {root} for {split!r}")
         boxes = compute_foreground_bboxes(
             cfg, spec, index, frames=LazyFrameStack(index),
-            detector=_resolve_detector(cfg), device=dev,
+            detector=_resolve_detector(cfg, dev), device=dev,
         )
         arr = np.empty(len(boxes), dtype=object)
         for i, b in enumerate(boxes):
