@@ -5,8 +5,10 @@ live-flow two-stream slice end to end at full width, trains FlowNetC
 calc-flow, train and test at full width, at dataset scale too, and
 drives the serving surface (push_many, probes, bf16, camera fleets with
 and without live flow, the serve CLI), then computes foreground boxes
-from the frames and serves with them computed in the loop, and runs the
-converted mmdet Cascade R-CNN behind `mmdet_checkpoint`.
+from the frames and serves with them computed in the loop, runs the
+converted mmdet Cascade R-CNN behind `mmdet_checkpoint`, and trains and
+scores a 2x2 model grid with its blocks folded into one network, then
+takes it out to the reference's model_set files and back.
 
     python3 chip_smoke.py
 
@@ -63,7 +65,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 
   6. train-test: the raw-only main path (`train` then the card-side steps
      of `test`) at the flagship width, 5raw nf=32, patch 32, batch 128,
-     10 epochs, Adam lr 1e-3 / eps 1e-7, over a seeded synthetic
+     3 epochs, Adam lr 1e-3 / eps 1e-7, over a seeded synthetic
      UCSD-layout tree of uint8 .npy frames at 240x360 with UCSDped2's
      frame counts (Train 16 videos, 2,550 frames; Test 12 videos, 2,010)
      and the generator's boxes as the bbox fixtures. `runner.run_train`
@@ -146,7 +148,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      over the first test video against phase 7's offline frame scores
      (5e-4 of the largest).
  10. foreground: a seeded synthetic tree in ShanghaiTech's layout at
-     480x856 (2 + 2 videos of 160 frames, .npy frames, the test videos'
+     480x856 (2 + 2 videos of 80 frames, .npy frames, the test videos'
      frame labels in Testing/test_frame_mask) and the 5raw1of model
      (nf=32, patch 32, batch 128, 10 epochs, 64 boxes). (a) motion maps
      of 64 windows at 480x856 (k 5, threshold 15) and at 240x360 (k 3,
@@ -191,6 +193,36 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      events) for the resize and upload, backbone + FPN, RPN with its
      NMS, the three stages, the multiclass NMS, and the rest of
      detect_many's wall, and a torch.profiler table of one batch.
+ 12. model grid: a seeded synthetic tree at UCSDped2's 240x360 (6 + 4
+     videos of 100 frames, .npy frames) in avenue's layout with its .mat
+     pixel GT (run_test reads it through scipy; the ped layout's .bmp
+     needs cv2), a 2x2 grid (h_block = w_block = 2) and the raw-only
+     model at the flagship width (5raw nf=32, patch 32, batch 128) cut
+     to 5 epochs. (a) `run_train`, checked to take GridTrainer.fit_blocks
+     (a wrapped call) with at least 3 blocks, then `train_model(
+     parallel_blocks=False)` on the same cubes: per-block training scores
+     within 5e-3 of the block's largest (GR_REL) and first losses within
+     1e-4, the first grid step's losses against the CPU's grid (1e-4);
+     a block stopped after its last step (128 cubes, 5 steps, beside one
+     of 15) equal bit for bit after the grid's last step (weights,
+     running statistics, Adam moments and step); `run_test` (score_cubes'
+     grid branch) and the model's cubes scored block after block (2e-4
+     of the largest, a block left out: its big_number rows equal), the
+     AUROC within 5e-3 of the sequential model's, infer_frame_scores_grid
+     against frame_level_scores(score_cubes(...)) (2e-4); (b) 5raw1of on
+     seeded flow maps (frame differences; no calc-flow): raw and flow
+     training scores grid against sequential (GR_REL); (c) bf16 grid
+     against the f32 grid's training scores (correlation > 0.98, mean
+     ratio 1 +- 0.15); (d) ms per grid step of 4 equal blocks in f32 and
+     bf16 against 4 x one block's step, train_model's wall both ways
+     (warm), the device's busy share, top operators and genericTranspose's
+     share of 5 grid steps, peak device memory beside GridTrainer's
+     estimate, score_cubes' frames/s both ways and infer_frame_scores_
+     grid's; (e) fit_block_budget of the largest block, its phases; (f)
+     `export-torch` then `import-torch` through cli.main: weights and
+     training scores bit for bit, `run_test` on the imported model within
+     1e-6 of the original's; (g) `python -m vec_vad_torch demo` in its own
+     process: exit 0 and a finite AUROC. No K1 or K2 launch in the phase.
 
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
@@ -248,6 +280,7 @@ from vec_vad_torch.serve import (
     StreamingScorer,
 )
 from vec_vad_torch.serve import streaming as serve_streaming
+from vec_vad_torch.train import grid_trainer
 from vec_vad_torch.train.trainer import BlockTrainer
 
 SEED = 0
@@ -273,10 +306,11 @@ CALC_SEGMENT = 24  # frames a segment: Train001's 40 frames span two
 # train-test: a UCSD-layout tree with UCSDped2's frame counts at 240x360
 TT_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_train_test"
 TT_LENGTHS = {"Train": (160,) * 15 + (150,), "Test": (168,) * 11 + (162,)}
-# the flagship raw-only model: 5raw, nf=32, patch 32, batch 128, 10 epochs
+# the flagship raw-only model: 5raw, nf=32, patch 32, batch 128, cut from
+# its 10 epochs to 3 for the script's time
 TT_CFG = PipelineConfig(
     dataset_name="UCSDped2_npy", fore=ForegroundConfig(patch_size=32),
-    model=CompletionConfig(nf=32, context_frame_num=4, context_of_num=0,
+    model=CompletionConfig(nf=32, context_frame_num=4, context_of_num=0, epochs=3,
                            use_flow=False, border_mode="predict"),
 )
 TT_STEADY = 30  # timed training steps at batch 128 after run_train
@@ -337,12 +371,12 @@ STREAM_AUROC_TOL = 1e-3
 # score: the run_train -> run_test bound
 LIVE_OFFLINE_TOL = 5e-4
 # foreground and motion serving (phase 10): ShanghaiTech's 480x856 in its
-# layout, 2 + 2 videos of 160 frames (ShanghaiTech: 330 + 107 videos,
-# 274,515 + 40,791 frames; cut for time and disk: 0.79 GB of frames, 2.1
+# layout, 2 + 2 videos of 80 frames (ShanghaiTech: 330 + 107 videos,
+# 274,515 + 40,791 frames; cut for time and disk: 0.39 GB of frames, 1.05
 # GB of flow maps), the 5raw1of model at the flagship width
 FG_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_foreground"
 FG_HW = (480, 856)
-FG_LENGTHS = {"Train": (160, 160), "Test": (160, 160)}
+FG_LENGTHS = {"Train": (80, 80), "Test": (80, 80)}
 FG_CFG = PipelineConfig(
     dataset_name="ShanghaiTech", fore=ForegroundConfig(patch_size=32),
     model=CompletionConfig(nf=32, context_frame_num=4, context_of_num=0,
@@ -377,6 +411,36 @@ DT_TIMED = 5  # timed batches
 # into the final boxes (75-83 % within 0.13 px on an H100)
 DT_REL = 1e-4
 DT_MATCHED = 0.95
+# the model grid (phase 12): a 2x2 grid over a seeded synthetic tree at
+# UCSDped2's 240x360 (6 + 4 videos of 100 frames), in avenue's layout so
+# that run_test reads its pixel GT through scipy (the card's machine has
+# no cv2 for the ped layout's .bmp masks), and the flagship raw-only model
+# cut to 5 epochs (its width kept: 5raw nf=32, patch 32, batch 128)
+GR_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_grid"
+GR_HW = (240, 360)
+GR_LENGTHS = {"Train": (100,) * 6, "Test": (100,) * 4}
+GR_CFG = PipelineConfig(
+    dataset_name="avenue", fore=ForegroundConfig(patch_size=32, h_block=2, w_block=2),
+    model=CompletionConfig(nf=32, context_frame_num=4, context_of_num=0, epochs=5,
+                           use_flow=False, border_mode="predict"),
+)
+GR_STEADY = 20  # timed grid steps (4 equal blocks, every block in every step)
+# grid against sequential training scores, |diff| <= GR_ATOL + GR_REL x
+# the block's largest score (block_close). The JAX package holds its grid
+# to rtol 2e-3 / atol 1e-4 a score (tests/test_grid_parallel.py:70-101),
+# but its grid runs each block's own program; the folded one sums in other
+# orders (cuDNN's algorithms for 20 groups, not 5), 6e-8 apart in the
+# first losses, and training grows that: a convolution bias before a
+# BatchNorm has a gradient of 0 up to rounding, which Adam turns into
+# steps of up to lr either way, and the running means that eval-mode
+# scores read lag those biases. On an H100 the folded 5-epoch fit came
+# 1.98e-3 (raw) and 1.36e-3 (5raw1of) of the largest score from the
+# sequential one, past a per-score rtol of 2e-3 on the flow scores (which
+# span 12-7,400); the bound is 2.5 times the larger
+GR_REL, GR_ATOL = 5e-3, 1e-4
+# grid against sequential scoring of the same model, relative to the
+# largest score, and the two models' AUROCs (tests/test_grid_parallel.py)
+GR_SCORE_REL, GR_AUROC_TOL = 2e-4, 5e-3
 # two runs of the same f32 scoring on the card, relative to the largest
 # score: they may differ in a score's last bit (1.2e-4 at scores near
 # 1,900, 6.5e-8 of the largest, on an H100: cuDNN's default algorithms
@@ -2779,6 +2843,331 @@ def detector_phase() -> None:
     DT_CKPT.unlink()
 
 
+def block_close(got, want) -> bool:
+    """|got - want| <= GR_ATOL + GR_REL * max |want| everywhere."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return got.shape == want.shape and bool(
+        np.abs(got - want).max() <= GR_ATOL + GR_REL * np.abs(want).max())
+
+
+def sequential_scores(model, cubes, trainer) -> np.ndarray:
+    """score_cubes' sequential branch on a raw-only model: each trained
+    block's cubes through BlockTrainer.score_block, fused with its
+    statistics; an untrained block's cubes big_number."""
+    mc = model.cfg.model
+    out = np.zeros(cubes.size)
+    for key, idx in pipeline.group_by_block(cubes).items():
+        blk = model.blocks.get(key)
+        if blk is None:
+            out[idx] = score_mod.BIG_NUMBER
+            continue
+        raw_sc, _ = trainer.score_block(blk, cubes.raw[idx])
+        out[idx] = score_mod.fuse_scores(raw_sc, None, blk.raw_stats, None, mc.w_raw,
+                                         mc.w_of)
+    return out
+
+
+@contextlib.contextmanager
+def counting_grid_fits():
+    """A list that gets the block count of every GridTrainer.fit_blocks
+    call made inside the block (train_model's grid route)."""
+    calls, fit_blocks = [], grid_trainer.GridTrainer.fit_blocks
+
+    def counted(self, block_data, *a, **k):
+        calls.append(len(block_data))
+        return fit_blocks(self, block_data, *a, **k)
+
+    grid_trainer.GridTrainer.fit_blocks = counted
+    try:
+        yield calls
+    finally:
+        grid_trainer.GridTrainer.fit_blocks = fit_blocks
+
+
+def grid_steady_steps(label, gt, block_data):
+    """GR_STEADY synchronised steps of a grid fit over block_data (every
+    block in every step; the first step left out of the statistics), then
+    a profile of 5. Returns the step times (ms) and the profile."""
+    fit = gt.prepare(block_data, gt.solo.init_state(SEED), SEED)
+    check(len(fit.active) >= GR_STEADY and min(fit.active) == len(block_data),
+          f"{len(fit.active)} grid steps, active {fit.active}")
+    ms = [timed(lambda: fit.step(s))[1] * 1e3 for s in range(GR_STEADY)]
+    print(f"{label}: ms per grid step ({gt.cfg.compute_dtype}, {len(block_data)} "
+          f"blocks x batch {gt.cfg.batch_size}, synchronised, steps 2-{GR_STEADY}) "
+          f"{step_stats(ms[1:])}", flush=True)
+    prof = profile_calls(f"{label}: 5 grid steps ({gt.cfg.compute_dtype})",
+                         lambda: [fit.step(s) for s in range(5)])
+    return ms, prof
+
+
+def grid_phase() -> None:
+    """The model grid on the card: run_train through the folded grid,
+    against the sequential loop, flow and bf16, the times, fit_block_budget,
+    export-torch / import-torch and the demo (module docstring, phase 12)."""
+    shutil.rmtree(GR_BASE, ignore_errors=True)
+    cfg, mc = GR_CFG, GR_CFG.model
+    config.register_dataset(dataclasses.replace(config.DATASETS["avenue"], file_ext=".npy",
+                                                frame_h=GR_HW[0], frame_w=GR_HW[1]))
+    dev = runner.resolve_device("cuda")
+    base = str(GR_BASE)
+    t0 = time.perf_counter()
+    labels = write_train_test_tree(GR_BASE / cfg.raw_dataset_dir / cfg.dataset_name,
+                                   SEED + 12, GR_LENGTHS, GR_HW, avenue=True)
+    print(f"grid: wrote {sum(GR_LENGTHS['Train'])} train and {sum(GR_LENGTHS['Test'])} "
+          f"test frames at {GR_HW} in {time.perf_counter() - t0:.1f} s (set-up)",
+          flush=True)
+    kernels.reset_launch_counts()
+
+    # (a) run_train on the 2x2 grid: the folded route, then the sequential
+    # loop on the same cubes
+    torch.cuda.reset_peak_memory_stats()
+    with counting_grid_fits() as fits:
+        (model, path), wall = timed(lambda: runner.run_train(cfg, base, seed=SEED,
+                                                              device=dev))
+    peak_run = torch.cuda.max_memory_allocated()
+    keys = sorted(model.blocks)
+    data = runner.load_split(cfg, base, "train")
+    cubes = runner._extract_cached(cfg, base, "train", data, cfg.fore.train_block_mode, dev)
+    rows = pipeline.group_by_block(cubes)
+    counts = {k: int(v.size) for k, v in rows.items()}
+    steps = {k: mc.epochs * -(-counts[k] // mc.batch_size) for k in keys}
+    print(f"grid: run_train {cubes.size} train cubes in cells {counts}, {len(keys)} blocks "
+          f"trained through GridTrainer.fit_blocks (calls {fits}), grid steps "
+          f"{max(steps.values())} against {sum(steps.values())} sequential ones, "
+          f"{wall:.2f} s wall (extraction, cube cache and model save included); peak "
+          f"device memory {peak_run / 2**20:.1f} MiB", flush=True)
+    check(len(keys) >= 3 and fits == [len(keys)], f"blocks {keys}, grid fits {fits}")
+    # each route twice: the first sets up cuDNN for its shapes, the second
+    # is timed; the pairs give the reruns' spread
+    seq = pipeline.train_model(cfg, cubes, seed=SEED, parallel_blocks=False, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    seq2, seq_wall = timed(lambda: pipeline.train_model(cfg, cubes, seed=SEED,
+                                                        parallel_blocks=False, device=dev))
+    peak_seq = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with counting_grid_fits() as fits:
+        grid2, grid_wall = timed(lambda: pipeline.train_model(cfg, cubes, seed=SEED,
+                                                              device=dev))
+    peak_grid = torch.cuda.max_memory_allocated()
+    check(fits == [len(keys)], f"train_model's route: grid fits {fits}")
+    rerun = [max(rel_diff(a.blocks[k].raw_scores, b.blocks[k].raw_scores) for k in keys)
+             for a, b in ((model, grid2), (seq, seq2))]
+    worst = {}
+    for k in keys:
+        a, b = model.blocks[k], seq.blocks[k]
+        check(a.losses.shape == b.losses.shape == (steps[k],), f"{k} losses")
+        d = np.abs(a.raw_scores.astype(np.float64) - b.raw_scores)
+        worst[k] = (rel_diff(a.raw_scores, b.raw_scores),
+                    float(abs(a.losses[0] - b.losses[0]) / abs(b.losses[0])))
+        check(block_close(a.raw_scores, b.raw_scores),
+              f"{k} grid vs sequential training scores, max |diff| {d.max()}")
+        check(worst[k][1] <= LOSS_REL_TOL, f"{k} first losses {a.losses[0]} {b.losses[0]}")
+    print(f"grid: train_model (warm) {grid_wall:.3f} s through the grid (peak "
+          f"{peak_grid / 2**20:.1f} MiB), {seq_wall:.3f} s block after block (peak "
+          f"{peak_seq / 2**20:.1f} MiB), "
+          f"{seq_wall / grid_wall:.2f}x; per block (training scores max |diff| / max "
+          f"|score|, first-loss relative diff) grid vs sequential {worst} (bounds "
+          f"{GR_REL} + atol {GR_ATOL}, {LOSS_REL_TOL}); reruns: the grid "
+          f"{rerun[0]:.3e}, the sequential loop {rerun[1]:.3e}", flush=True)
+
+    # the first grid step's losses on the CPU from the same init and batches
+    chunk = sorted([(k, cubes.raw[rows[k]], None) for k in keys],
+                   key=lambda b: -b[1].shape[0])
+    cpu_gt = grid_trainer.GridTrainer(mc, cfg.fore.patch_size, "cpu")
+    t0 = time.perf_counter()
+    fit = cpu_gt.prepare(chunk, cpu_gt.solo.init_state(SEED), SEED)
+    g, x, x_of, w, bw = fit.batch(0)
+    with torch.no_grad():
+        cpu_first = cpu_gt.block_losses(fit.net(x, x_of, True, bw), w)[:, 0].numpy()
+    cpu_s = time.perf_counter() - t0
+    card_first = np.array([model.blocks[k].losses[0] for k, _, _ in chunk])
+    rel = float(np.max(np.abs(card_first - cpu_first) / np.abs(cpu_first)))
+    print(f"grid: first grid step's losses card {card_first.tolist()} cpu "
+          f"{cpu_first.tolist()} ({cpu_s:.1f} s there), max rel diff {rel:.3e} (bound "
+          f"{LOSS_REL_TOL})", flush=True)
+    check(g == len(keys) and rel <= LOSS_REL_TOL, f"card vs CPU first grid losses {rel}")
+    del cpu_gt, fit, x
+
+    # a block whose schedule ends first keeps its state bit for bit
+    big, small = chunk[0][0], chunk[-1][0]
+    gt = grid_trainer.GridTrainer(mc, cfg.fore.patch_size, dev)
+    with full_f32():
+        fit = gt.prepare([chunk[0], (small, chunk[-1][1][: mc.batch_size], None)],
+                         gt.solo.init_state(SEED), SEED)
+        for s in range(len(fit.active)):
+            fit.step(s)
+            if s == fit.steps[1] - 1:
+                frozen = (gt._download(fit.net, 2)[1], fit.adam.block_state(1))
+        after = (gt._download(fit.net, 2)[1], fit.adam.block_state(1))
+    same = (all(torch.equal(frozen[0][k], after[0][k]) for k in after[0])
+            and frozen[1]["step"] == after[1]["step"] == fit.steps[1]
+            and all(torch.equal(frozen[1][m][n], after[1][m][n])
+                    for m in ("exp_avg", "exp_avg_sq") for n in after[1][m]))
+    print(f"grid: block {small} ({mc.batch_size} cubes, {fit.steps[1]} steps) beside "
+          f"{big} ({fit.steps[0]} steps): weights, running statistics, Adam moments "
+          f"and step after its last step and after the grid's last bit for bit: {same}",
+          flush=True)
+    check(same, "a finished block's state moved")
+    del fit
+
+    # run_test (score_cubes' grid branch) against the sequential scoring
+    res, test_wall = timed(lambda: runner.run_test(cfg, base, model=model, device=dev))
+    test_data = runner.load_split(cfg, base, "test")
+    test_cubes = runner._extract_cached(cfg, base, "test", test_data,
+                                        cfg.fore.test_block_mode, dev)
+    n_frames = test_data.index.total_frames
+    card_t = BlockTrainer(mc, cfg.fore.patch_size, dev)
+    pipeline.score_cubes(model, test_cubes, trainer=card_t)  # warm
+    grid_sc, grid_s = timed(lambda: pipeline.score_cubes(model, test_cubes, trainer=card_t))
+    seq_sc, seq_s = timed(lambda: sequential_scores(model, test_cubes, card_t))
+    frames = pipeline.frame_level_scores(grid_sc, test_cubes, n_frames)
+    rel = rel_diff(grid_sc, seq_sc)
+    part = VadModel(cfg=cfg, blocks={k: v for k, v in model.blocks.items() if k != small})
+    a, b = (pipeline.score_cubes(part, test_cubes, trainer=card_t),
+            sequential_scores(part, test_cubes, card_t))
+    untrained = b == score_mod.BIG_NUMBER
+    rel_part = rel_diff(a[~untrained], b[~untrained])
+    seq_frames = pipeline.frame_level_scores(
+        pipeline.score_cubes(seq, test_cubes, trainer=card_t), test_cubes, n_frames)
+    (GR_BASE / "results_seq").mkdir()
+    seq_auroc = runner.evaluate_frame_scores(cfg, str(GR_BASE / "results_seq"), seq_frames,
+                                             labels)["auroc"]
+    inf, inf_s = timed(lambda: infer.infer_frame_scores_grid(model, test_cubes, n_frames,
+                                                             trainer=card_t))
+    rel_inf = rel_diff(inf, frames)
+    print(f"grid: run_test {test_wall:.2f} s, AUROC {res['auroc']:.6f} (the sequential "
+          f"model's {seq_auroc:.6f}, bound {GR_AUROC_TOL}); {test_cubes.size} test cubes, "
+          f"score_cubes grid {n_frames / grid_s:.1f} frames/s against block after block "
+          f"{n_frames / seq_s:.1f}, max |diff| / max |score| {rel:.3e}; without block "
+          f"{small}: {int(untrained.sum())} big_number rows, {rel_part:.3e}; "
+          f"infer_frame_scores_grid {n_frames / inf_s:.1f} frames/s, against "
+          f"frame_level_scores(score_cubes) {rel_inf:.3e} (bound {GR_SCORE_REL})",
+          flush=True)
+    check(np.array_equal(res["frame_scores"], frames) or
+          rel_diff(res["frame_scores"], frames) <= RERUN_REL_TOL, "run_test's frame scores")
+    check(rel <= GR_SCORE_REL and rel_part <= GR_SCORE_REL and rel_inf <= GR_SCORE_REL,
+          f"grid scoring {rel} {rel_part} {rel_inf}")
+    check(untrained.any() and np.array_equal(a == score_mod.BIG_NUMBER, untrained),
+          "untrained block's rows")
+    check(abs(res["auroc"] - seq_auroc) <= GR_AUROC_TOL, f"AUROCs {res['auroc']} {seq_auroc}")
+
+    # (b) 5raw1of on seeded flow maps: grid against sequential
+    cfg_of = cfg.replace(model=dataclasses.replace(mc, use_flow=True))
+    gray = np.asarray(data.frames).astype(np.float32).mean(-1)
+    d = np.diff(gray, axis=0, append=gray[-1:])
+    flow = np.stack([d, -d], axis=-1) / 25.0
+    of_cubes = pipeline.extract_cube_set(cfg_of, cfg.dataset, data.index, data.frames,
+                                         data.boxes, flow_frames=flow, device=dev)
+    del gray, d, flow
+    with counting_grid_fits() as fits:
+        of_grid, of_wall = timed(lambda: pipeline.train_model(cfg_of, of_cubes, seed=SEED,
+                                                              device=dev))
+    of_seq, of_seq_wall = timed(lambda: pipeline.train_model(
+        cfg_of, of_cubes, seed=SEED, parallel_blocks=False, device=dev))
+    of_keys = sorted(of_grid.blocks)
+    check(fits == [len(of_keys)] and of_keys == sorted(of_seq.blocks), f"flow fits {fits}")
+    rels = []
+    for k in of_keys:
+        a, b = of_grid.blocks[k], of_seq.blocks[k]
+        for got, want in ((a.raw_scores, b.raw_scores), (a.of_scores, b.of_scores)):
+            check(block_close(got, want),
+                  f"{k} flow grid vs sequential, max |diff| {np.abs(got - want).max()}")
+            rels.append(rel_diff(got, want))
+    print(f"grid: (b) 5raw1of, {of_cubes.size} cubes: train_model grid {of_wall:.3f} s, "
+          f"sequential {of_seq_wall:.3f} s ({of_seq_wall / of_wall:.2f}x); raw and flow "
+          f"training scores max |diff| / max |score| {max(rels):.3e} (bound {GR_REL} + "
+          f"atol {GR_ATOL})", flush=True)
+    del of_cubes, of_grid, of_seq
+
+    # (c) bf16 grid against the f32 grid
+    cfg_bf = cfg.replace(model=dataclasses.replace(mc, compute_dtype="bfloat16"))
+    with counting_grid_fits() as fits:
+        bf, bf_wall = timed(lambda: pipeline.train_model(cfg_bf, cubes, seed=SEED,
+                                                         device=dev))
+    stats = {}
+    for k in keys:
+        a, b = model.blocks[k].raw_scores, bf.blocks[k].raw_scores
+        stats[k] = (float(np.corrcoef(a, b)[0, 1]), float(b.mean() / a.mean()))
+        check(stats[k][0] > BF16_CORR and abs(stats[k][1] - 1.0) < BF16_MEAN_RATIO,
+              f"{k} bf16 vs f32 {stats[k]}")
+    print(f"grid: (c) bf16 train_model through the grid {bf_wall:.3f} s (fits {fits}); "
+          f"training scores against the f32 grid's (correlation, mean ratio) {stats} "
+          f"(bounds > {BF16_CORR}, 1 +- {BF16_MEAN_RATIO})", flush=True)
+    check(fits == [len(keys)], f"bf16 fits {fits}")
+
+    # (d) ms per grid step against the blocks' sequential sum, f32 and bf16
+    raw4 = cubes.raw[: 4 * mc.batch_size]
+    four = [((0, i // 2, i % 2), raw4, None) for i in range(4)]
+    for c in (cfg, cfg_bf):
+        label = f"grid: (d) {c.model.compute_dtype}"
+        gt = grid_trainer.GridTrainer(c.model, cfg.fore.patch_size, dev)
+        torch.cuda.reset_peak_memory_stats()
+        with full_f32():
+            grid_ms, prof = grid_steady_steps(label, gt, four)
+        peak = torch.cuda.max_memory_allocated()
+        busy = device_busy_us(prof)
+        tr = kernel_us(prof, "genericTranspose")
+        solo_ms, _ = steady_steps(f"{label} one block",
+                                  BlockTrainer(c.model, cfg.fore.patch_size, dev),
+                                  cubes, seq_wall * 1e3 / sum(steps.values()))
+        g_med, s_med = float(np.median(grid_ms[1:])), float(np.median(solo_ms[1:]))
+        print(f"{label}: grid step of 4 blocks {g_med:.3f} ms against 4 x one block's "
+              f"{s_med:.3f} = {4 * s_med:.3f} ms: {4 * s_med / g_med:.2f}x; the 5 grid "
+              f"steps' genericTranspose {tr / 1e3:.3f} ms, {100 * tr / max(busy, 1e-9):.1f} "
+              f"% of device busy {busy / 1e3:.3f} ms; peak device memory {peak / 2**20:.1f} "
+              f"MiB, GridTrainer.block_bytes estimate of 4 blocks "
+              f"{4 * gt.block_bytes(c.model.batch_size, True) / 2**20:.1f} MiB, "
+              f"max_blocks {gt.max_blocks(c.model.batch_size, True)}", flush=True)
+
+    # (e) fit_block_budget on the largest block
+    budget = card_t.fit_block_budget(chunk[0][1], None, seed=SEED)
+    print(f"grid: (e) fit_block_budget of block {big} ({counts[big]} cubes, warm run): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in budget.items()), flush=True)
+    check(abs(budget["total_s"] - sum(v for k, v in budget.items() if k != "total_s"))
+          < 1e-9 and len(budget) == 7, f"budget {budget}")
+
+    # (f) export-torch, then import-torch, through cli.main
+    ini = GR_BASE / "config.cfg"
+    ini.write_text(f"[shared_parameters]\ndataset_name = avenue\n[avenue]\npatch_size = "
+                   f"{cfg.fore.patch_size}\nh_block = 2\nw_block = 2\n[SelfComplete]\nnf = "
+                   f"{mc.nf}\nepochs = {mc.epochs}\nbatch_size = {mc.batch_size}\n"
+                   "context_of_num = 0\nuseFlow = False\n")
+    check(config.load_ini_config(str(ini)) == cfg, "the INI's config")
+    out, dst = GR_BASE / "reference", GR_BASE / "imported"
+    serve_cli(["export-torch", "--config", str(ini), "--base", base, "--out", str(out)])
+    serve_cli(["import-torch", "--config", str(ini), "--base", str(dst), "--model-dir",
+               str(out)])
+    imported = load_vad_model(runner.model_path(cfg, str(dst)))
+    same = (sorted(imported.blocks) == keys and all(
+        torch.equal(imported.blocks[k].state_dict[n], v.cpu())
+        for k in keys for n, v in model.blocks[k].state_dict.items())
+        and all(np.array_equal(imported.blocks[k].raw_scores, model.blocks[k].raw_scores)
+                and imported.blocks[k].of_scores is None for k in keys))
+    res_imp = runner.run_test(cfg, base, model=imported, device=dev)
+    rel = rel_diff(res_imp["frame_scores"], res["frame_scores"])
+    print(f"grid: (f) export-torch -> {sorted(p.name for p in out.iterdir())}, "
+          f"import-torch -> weights and training scores bit for bit: {same}; run_test on "
+          f"the imported model AUROC {res_imp['auroc']:.6f}, frame scores max |diff| / "
+          f"max |score| {rel:.3e} from the original's (bound {RERUN_REL_TOL})", flush=True)
+    check(same and rel <= RERUN_REL_TOL, "export/import round trip")
+
+    # (g) the demo as its own process on the card
+    r, demo_s = timed(lambda: subprocess.run(
+        [sys.executable, "-m", "vec_vad_torch", "demo"], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=600))
+    print(r.stdout[-1500:], end="")
+    m = re.search(r"frame-level AUROC: (\S+)", r.stdout)
+    print(f"grid: (g) python -m vec_vad_torch demo: exit {r.returncode} in {demo_s:.1f} s, "
+          f"AUROC {m.group(1) if m else None}", flush=True)
+    check(r.returncode == 0 and m is not None and np.isfinite(float(m.group(1))),
+          f"demo: {r.stderr[-2000:]}")
+
+    launches = dict(kernels.launch_counts)
+    print(f"grid: K1/K2 launches over the phase {launches}")
+    check(not any(launches.values()), f"K1/K2 launched in the grid phase: {launches}")
+    shutil.rmtree(GR_BASE, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -2927,7 +3316,11 @@ def main() -> int:
     # -- detector phase: the converted Cascade R-CNN on phase 10's tree -----
     detector_phase()
     shutil.rmtree(FG_BASE, ignore_errors=True)
-    phase_done("detector", t_phase)
+    t_phase = phase_done("detector", t_phase)
+
+    # -- grid phase: the 2x2 model grid, folded, and the interop ------------
+    grid_phase()
+    phase_done("grid", t_phase)
 
     rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"],
                                calc["fwd_err"], surf["fwd_err"], fg["fwd_err"]))
@@ -2940,7 +3333,7 @@ def main() -> int:
           f"FlowNetC training {train['launches']['correlation']}, FlowNet2 steps "
           f"{ft_launches['correlation']}, calc-flow {calc['launches']}, two-stream "
           f"calc-flow {ts_launches}, serving surface {surf_launches}, foreground "
-          f"{fg['launches']}); K2 {k2}")
+          f"{fg['launches']}, detector 0, model grid 0); K2 {k2}")
     # no single PyTorch call computes the cost volume or its gradients
     record = {"kernels": [
         {"name": "correlation_fwd", "route": "cuda",

@@ -666,3 +666,106 @@ def test_small_detect_on_card_matches_cpu(cuda):
     assert torch.equal(gok.cpu(), wok) and torch.equal(gl.cpu(), wl) and wok.sum() > 0
     torch.testing.assert_close(gs.cpu()[wok], ws[wok], rtol=1e-3, atol=1e-7)
     torch.testing.assert_close(gb.cpu()[wok], wb[wok], rtol=0, atol=1e-2)
+
+
+def _grid_cfg(use_flow=False):
+    from vec_vad_torch.config import CompletionConfig
+
+    return CompletionConfig(nf=4, epochs=2, batch_size=16, context_of_num=0,
+                            use_flow=use_flow)
+
+
+def _grid_data(use_flow, counts=(40, 25, 7, 33)):
+    rng = np.random.default_rng(0)
+    return [((0, i // 2, i % 2), rng.integers(0, 256, (n, 16, 16, 15), dtype=np.uint8),
+             rng.normal(0, 0.1, (n, 16, 16, 2)).astype(np.float32) if use_flow else None)
+            for i, n in enumerate(counts)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_flow", [False, True])
+def test_grid_matches_sequential_on_card(cuda, full_f32, use_flow):
+    """GridTrainer on the card (4 ragged blocks, one ending within the
+    others' first epoch) against BlockTrainer.fit_block per block on the
+    card from the same init: training scores and losses within 5e-3 of
+    their largest. cuDNN sums the folded convolutions (20 groups, not 5)
+    in other orders, and training grows that rounding through the
+    BatchNorm-preceded biases' Adam steps (chip_smoke.py's GR_REL: the
+    folded 5-epoch fit 2.0e-3 of the largest from the sequential one on an
+    H100)."""
+    from vec_vad_torch.train.grid_trainer import GridTrainer
+    from vec_vad_torch.train.trainer import BlockTrainer
+
+    cfg, data = _grid_cfg(use_flow), _grid_data(use_flow)
+    grid = GridTrainer(cfg, 16, cuda).fit_blocks(data, seed=3)
+    bt = BlockTrainer(cfg, 16, cuda)
+    for key, raw, of in data:
+        solo = bt.fit_block(raw, of, seed=3)
+        g = grid[key]
+        for got, want in ((g.raw_scores, solo.raw_scores), (g.losses, solo.losses)) + (
+                ((g.of_scores, solo.of_scores),) if use_flow else ()):
+            assert got.shape == want.shape
+            assert np.abs(got - want).max() <= 5e-3 * np.abs(want).max(), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_batchnorm_grid_mask_on_card(cuda, full_f32, dtype):
+    """BatchNorm with a (G, B) mask on the card against the same layer run
+    block by block with each block's (B,) mask: outputs and running
+    statistics within rounding (f32 1e-5, bf16 one bf16 ulp of the
+    largest output)."""
+    from vec_vad_torch.models.layers import BatchNorm
+
+    G, E, F, B = 3, 2, 4, 8
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(1.0, 2.0, (B, G * E * F, 6, 6)).astype(np.float32))
+    mask = np.ones((G, B), np.float32)
+    mask[0, 5:] = 0
+    mask[2, 1:] = 0
+    w = torch.from_numpy(mask)
+    grid = BatchNorm(G * E, F, device=cuda)
+    with torch.no_grad():
+        out = grid(x.to(cuda, dtype), True, w.to(cuda))
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for g in range(G):
+        one = BatchNorm(E, F, device=cuda)
+        c = slice(g * E * F, (g + 1) * E * F)
+        with torch.no_grad():
+            want = one(x[:, c].to(cuda, dtype), True, w[g].to(cuda))
+        got = out[:, c]
+        assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+        for a, b in ((grid.running_mean[c], one.running_mean),
+                     (grid.running_var[c], one.running_var)):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_export_import_round_trip_on_card(cuda, tmp_path):
+    """A grid the card trained goes out as the reference's three files and
+    comes back through import_model_grid(device='cuda') bit for bit, and
+    scores the same on the card."""
+    from vec_vad_torch.config import ForegroundConfig, PipelineConfig
+    from vec_vad_torch.models.completion_convert import import_model_grid
+    from vec_vad_torch.models.completion_export import export_model_grid
+    from vec_vad_torch.pipeline import CubeSet, VadModel, score_cubes
+    from vec_vad_torch.train.grid_trainer import GridTrainer
+
+    cfg = PipelineConfig(fore=ForegroundConfig(patch_size=16, h_block=2, w_block=2),
+                         model=_grid_cfg(True))
+    data = _grid_data(True)
+    model = VadModel(cfg=cfg, blocks=GridTrainer(cfg.model, 16, cuda).fit_blocks(data))
+    export_model_grid(model, str(tmp_path), device=cuda)
+    back = import_model_grid(cfg, str(tmp_path), device=cuda)
+    assert sorted(back.blocks) == sorted(model.blocks)
+    for key, blk in model.blocks.items():
+        for k, v in blk.state_dict.items():
+            assert torch.equal(back.blocks[key].state_dict[k].cpu(), v.cpu()), k
+        np.testing.assert_array_equal(back.blocks[key].of_scores, blk.of_scores)
+    raw = np.concatenate([r for _, r, _ in data])
+    cells = np.concatenate([np.tile(k[1:], (r.shape[0], 1)) for k, r, _ in data])
+    cubes = CubeSet(raw, np.concatenate([o for _, _, o in data]), np.arange(raw.shape[0]),
+                    np.zeros((raw.shape[0], 4), np.float32), cells,
+                    np.ones(raw.shape[0], np.int64))
+    a, b = score_cubes(model, cubes, device=cuda), score_cubes(back, cubes, device=cuda)
+    assert np.abs(a - b).max() <= 1e-6 * np.abs(a).max()

@@ -105,6 +105,42 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch):
                   "--net", "FlowNetC"])
 
 
+def test_grid_and_interop_entry_points_need_a_card(monkeypatch, tmp_path):
+    """The model grid's and the interop's entry points: device='cuda' (the
+    default) raises without a card, device='cpu' runs."""
+    from vec_vad_torch import demo
+    from vec_vad_torch.config import CompletionConfig, PipelineConfig
+    from vec_vad_torch.infer import infer_frame_scores_grid
+    from vec_vad_torch.models.completion_convert import import_model_grid
+    from vec_vad_torch.models.completion_export import export_model_grid
+    from vec_vad_torch.pipeline import CubeSet, TrainedBlock, VadModel
+    from vec_vad_torch.train.grid_trainer import GridTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PipelineConfig(model=CompletionConfig(nf=4, use_flow=False))
+    cubes = CubeSet(np.zeros((2, 16, 16, 15), np.uint8), None, np.zeros(2, np.int64),
+                    np.zeros((2, 4), np.float32), np.zeros((2, 2), np.int64),
+                    np.ones(2, np.int64))
+    calls = [
+        lambda **k: GridTrainer(cfg.model, 16, **k),
+        lambda **k: infer_frame_scores_grid(VadModel(cfg=cfg), cubes, 2, **k),
+        lambda **k: import_model_grid(cfg, str(tmp_path), **k),
+        lambda **k: demo.main(base=str(tmp_path / "demo"), **k),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert GridTrainer(cfg.model, 16, device="cpu").device.type == "cpu"
+    assert infer_frame_scores_grid(VadModel(cfg=cfg), cubes, 2, device="cpu").shape == (2,)
+    with pytest.raises(FileNotFoundError):  # runs as far as reading the files
+        import_model_grid(cfg, str(tmp_path), device="cpu")
+    state = GridTrainer(cfg.model, 16, device="cpu").solo.init_state(0)
+    model = VadModel(cfg=cfg, blocks={(0, 0, 0): TrainedBlock(state, np.ones(3), None)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_model_grid(model, str(tmp_path / "out"))
+    assert len(export_model_grid(model, str(tmp_path / "out"), device="cpu")) == 3
+
+
 def test_correlation_wrapper_routes_by_device():
     """CPU tensors take the plain version (no launch counted); tensors on
     any other device go to the kernel path, which raises rather than fall
@@ -202,22 +238,28 @@ def test_host_copies_match_jax_package():
                                "make_level_targets"]),
     ("runtime.artifacts", ["_flatten", "_unflatten", "save_pytree_npz",
                            "load_pytree_npz", "fingerprint", "ArtifactCache"]),
+    ("runtime.profiling", ["StageTimer"]),
+    ("models.completion_convert", ["_strip_module"]),
+    ("train.grid_trainer", ["GridTrainer._uniform_has_flow"]),
 ])
 def test_copied_host_functions_equal_jax_package(module, names):
     """The host (NumPy) functions the main path copies are the JAX
     package's code, name for name."""
     import importlib
     import inspect
+    import textwrap
 
     t_mod = importlib.import_module(f"vec_vad_torch.{module}")
     j_mod = importlib.import_module(f"vec_vad_tpu.{module}")
     for name in names:
-        t_obj, j_obj = getattr(t_mod, name), getattr(j_mod, name)
+        t_obj, j_obj = t_mod, j_mod
+        for part in name.split("."):
+            t_obj, j_obj = getattr(t_obj, part), getattr(j_obj, part)
         if not callable(t_obj):
             assert t_obj == j_obj, name
             continue
-        assert ast.dump(ast.parse(inspect.getsource(t_obj))) == \
-            ast.dump(ast.parse(inspect.getsource(j_obj))), name
+        assert ast.dump(ast.parse(textwrap.dedent(inspect.getsource(t_obj)))) == \
+            ast.dump(ast.parse(textwrap.dedent(inspect.getsource(j_obj)))), name
 
 
 @pytest.mark.parametrize("name", ["data/video_index.py", "data/readers.py"])

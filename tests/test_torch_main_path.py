@@ -685,21 +685,16 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
 
 
 def test_left_out_routes_refuse_by_name(tmp_path):
-    """What the port leaves out raises and names its ROADMAP item: the
-    parallel GridTrainer (item 2.8) and a fleet sharded over a device mesh
-    (item 5). Computing boxes without a bbox fixture (item 4.1), `serve
-    --motion` (item 4.3) and the appearance detector behind a configured
-    `mmdet_checkpoint` (item 4.2) are ported and no longer refuse
+    """What the port leaves out raises and names its ROADMAP item: a fleet
+    sharded over a device mesh (item 5). Computing boxes without a bbox
+    fixture (item 4.1), `serve --motion` (item 4.3), the appearance
+    detector behind a configured `mmdet_checkpoint` (item 4.2) and the
+    parallel GridTrainer (item 2.8) are ported and no longer refuse
     (tests/test_torch_foreground.py, tests/test_torch_motion_serving.py,
-    tests/test_torch_detectors.py)."""
+    tests/test_torch_detectors.py, tests/test_torch_grid.py)."""
     from vec_vad_torch.serve import MultiCameraFlowScorer, MultiCameraScorer
 
     jcfg, tcfg = _configs()
-    cubes = t_pipe.CubeSet(_cubes(0, 4), None, np.zeros(4, np.int64),
-                           np.zeros((4, 4), np.float32), np.zeros((4, 2), np.int64),
-                           np.ones(4, np.int64))
-    with pytest.raises(NotImplementedError, match="item 2.8"):
-        t_pipe.train_model(tcfg, cubes, parallel_blocks=True, device="cpu")
     with pytest.raises(FileNotFoundError):
         t_runner.load_split(tcfg, str(tmp_path), "train", device="cpu")
     for fleet, kw in ((MultiCameraScorer, {}),

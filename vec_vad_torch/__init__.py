@@ -30,7 +30,13 @@ Ported so far:
     precompute-boxes CLI; load_split computes boxes where no fixture is;
   * serving at large — push_many, the camera fleets, bf16 scoring and the
     serve CLI, and the self-contained motion scorers
-    (serve.MotionStreamingScorer, serve.MotionFlowStreamingScorer).
+    (serve.MotionStreamingScorer, serve.MotionFlowStreamingScorer);
+  * the model-block grid — train.grid_trainer.GridTrainer (the blocks
+    folded into one network) behind train_model / score_cubes and
+    infer.infer_frame_scores_grid; BlockTrainer.fit_block_budget, the demo
+    (`python -m vec_vad_torch demo`, vec_vad_torch.demo), and the
+    reference's model_set in and out (models.completion_convert /
+    completion_export, the import-torch / export-torch CLI).
 The FlowNetC correlation is differentiable and runs as hand-written CUDA
 kernels on the card: csrc/correlation.cu forward, csrc/correlation_bwd.cu
 backward.

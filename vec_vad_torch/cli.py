@@ -1,7 +1,8 @@
 """The port's command line (vec_vad_tpu/cli.py): `train`, `test`,
-`calc-flow`, `precompute-boxes`, `serve`, `flow-train` and `flow-infer`,
-with vec_vad_tpu's flags and messages plus `--device` (the card by
-default; `--device cpu` runs the plain PyTorch path).
+`calc-flow`, `precompute-boxes`, `serve`, `flow-train`, `flow-infer`,
+`demo`, `export-torch` and `import-torch`, with vec_vad_tpu's flags and
+messages plus `--device` (the card by default; `--device cpu` runs the
+plain PyTorch path).
 
     python -m vec_vad_torch train --config config.cfg --base .
     python -m vec_vad_torch test --config config.cfg --base .
@@ -11,6 +12,9 @@ default; `--device cpu` runs the plain PyTorch path).
     python -m vec_vad_torch flow-train --data-root TREE --workdir WD \\
         --net FlowNetC --loss multiscale --norm L1
     python -m vec_vad_torch flow-infer --data-root TREE --workdir WD
+    python -m vec_vad_torch demo
+    python -m vec_vad_torch export-torch --config config.cfg [--out DIR]
+    python -m vec_vad_torch import-torch --config config.cfg --model-dir DIR
 
 With `useFlow = True` in the config and the tree calc-flow wrote, train
 and test run the two-stream model. `--resident` extracts a split on the
@@ -23,6 +27,11 @@ converted Cascade R-CNN, on the device for the obj_det modes; without a
 fixture, train and test compute the same boxes). `serve` streams the test split through the online
 scorers (`--live-flow`: flow computed in the loop; `--motion`: boxes
 computed in the loop, with `--live-flow` both; `--cameras C`: a fleet).
+A config with h_block/w_block above 1 trains and scores its blocks folded
+together (train.grid_trainer). `demo` runs train and test on a synthetic
+tree (vec_vad_torch.demo); `export-torch` writes the trained grid as the
+reference's model_set and training-score files, `import-torch` reads them
+(e.g. its released checkpoints) into the .npz model `test` loads.
 calc-flow has no `--no-mesh`: the JAX package's data-parallel mesh is not
 ported. The other subcommands of vec_vad_tpu are not ported yet
 (ROADMAP.md).
@@ -526,6 +535,51 @@ def cmd_flow_infer(args) -> int:
     return 0
 
 
+def cmd_demo(args) -> int:
+    from vec_vad_torch.demo import main as demo_main
+
+    demo_main(device=args.device, base=args.base)
+    return 0
+
+
+def cmd_export_torch(args) -> int:
+    """Export the trained model grid to the reference's torch artifact
+    set (model_set + raw/of training-score grids, train.py:432-436
+    naming/format) so the unmodified reference test.py can score with a
+    model trained here (models.completion_export)."""
+    from vec_vad_torch.models.completion_export import export_model_grid
+    from vec_vad_torch.runner import model_path
+    from vec_vad_torch.runtime.artifacts import load_vad_model
+
+    cfg = _load_cfg(args)
+    path = model_path(cfg, args.base)
+    model = load_vad_model(path)
+    out = args.out or os.path.dirname(path)
+    for p in export_model_grid(model, out, mode=cfg.fore.extraction_mode,
+                               method=cfg.method, device=args.device):
+        print(p)
+    return 0
+
+
+def cmd_import_torch(args) -> int:
+    """Import a released reference checkpoint set (model_set +
+    raw/of training-score grids, README.md:63 e.g.
+    avenue_model_5raw1of_auc0.902) into the .npz VadModel the `test`
+    subcommand loads — the inverse of `export-torch`."""
+    from vec_vad_torch.models.completion_convert import import_model_grid
+    from vec_vad_torch.runner import model_path
+    from vec_vad_torch.runtime.artifacts import save_vad_model
+
+    cfg = _load_cfg(args)
+    model = import_model_grid(cfg, args.model_dir, device=args.device)
+    out = args.out or model_path(cfg, args.base)
+    if os.path.dirname(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+    save_vad_model(out, model)
+    print(f"imported {len(model.blocks)} block(s) -> {out}")
+    return 0
+
+
 def _add_device(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -715,6 +769,45 @@ def main(argv=None) -> int:
                    "<workdir>/inference)")
     _add_device(p)
     p.set_defaults(fn=cmd_flow_infer)
+
+    p = sub.add_parser("demo", help="end-to-end demo on a synthetic dataset")
+    p.add_argument("--base", default=None,
+                   help="workspace directory, kept (default: a temporary "
+                   "one, deleted after)")
+    _add_device(p)
+    p.set_defaults(fn=cmd_demo)
+
+    p = sub.add_parser(
+        "export-torch",
+        help="export the trained model grid to the reference's torch "
+        "artifact format (model_set + training-score grids)",
+    )
+    _add_common(p)
+    p.add_argument(
+        "--out", default=None,
+        help="output directory (default: alongside the .npz model)",
+    )
+    _add_device(p)
+    p.set_defaults(fn=cmd_export_torch)
+
+    p = sub.add_parser(
+        "import-torch",
+        help="import a released reference checkpoint set (model_set + "
+        "training-score grids) into the .npz model `test` loads",
+    )
+    _add_common(p)
+    p.add_argument(
+        "--model-dir", required=True,
+        help="directory holding <ds>_model_<mode>_<method>.npy + the "
+        "raw/of training-score files (the reference's data/raw2flow)",
+    )
+    p.add_argument(
+        "--out", default=None,
+        help="output .npz path (default: the canonical model path under "
+        "--base, where `test` looks)",
+    )
+    _add_device(p)
+    p.set_defaults(fn=cmd_import_torch)
 
     args = ap.parse_args(argv)
     return args.fn(args)

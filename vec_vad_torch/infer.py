@@ -27,9 +27,10 @@ Every gather clamps its indices, as jnp.take(mode='clip') does.
 `compute_dtype` (a torch dtype or its name) casts as the JAX package
 does: the gathered cubes to the dtype before the 1/255 scale, the weights
 (running statistics included) to the dtype, the errors back to f32
-before their sums. Single-block (h_block == w_block == 1) forms: the
-general model grid goes through pipeline.score_cubes. Not ported
-(ROADMAP.md Queue 1 item 2.8): the grid form `infer_frame_scores_grid`.
+before their sums. These are single-block (h_block == w_block == 1)
+forms. `infer_frame_scores_grid` (:257-322) scores a multi-block model on
+an extracted CubeSet, every trained block folded into one forward per
+batch (train.grid_trainer.GridTrainer.score_blocks).
 """
 
 from __future__ import annotations
@@ -280,3 +281,52 @@ def infer_frame_scores(
         flow=flow, of_windows=of_windows, segment_frames=seg, chunk=chunk, net=net,
         compute_dtype=compute_dtype, device=device,
     )
+
+
+def infer_frame_scores_grid(
+    model,
+    test_cubes,
+    n_frames: int,
+    trainer=None,
+    cube_batch: int = 2048,
+    compute_dtype=torch.float32,
+    big_number: float = BIG_NUMBER,
+    device="cuda",
+) -> np.ndarray:
+    """Frame scores of a multi-block model (vec_vad_tpu/infer.py:257-322)
+    from an extracted CubeSet (pipeline.extract_cube_set or its resident
+    form): every trained block's cubes scored together in batches of
+    `cube_batch` rows a block (GridTrainer.score_blocks, in compute_dtype:
+    f32 unless asked), fused on the host (fuse_scores), degenerate boxes
+    dropped, the max per frame. Cubes of an untrained block score
+    big_number (test.py:308-310); a frame with no scoring cube,
+    -big_number. Runs on `device`, or `trainer`'s when one is given."""
+    from vec_vad_torch.pipeline import _grid_trainer, _rows, group_by_block, make_trainer
+    from vec_vad_torch.score.scoring import fuse_scores
+
+    cfg = model.cfg
+    mc = cfg.model
+    trainer = trainer or make_trainer(cfg, device)
+    use_flow = mc.use_flow and test_cubes.flow is not None
+
+    cube_scores = np.full(test_cubes.size, big_number, dtype=np.float32)
+    trained = {k: v for k, v in group_by_block(test_cubes).items()
+               if model.blocks.get(k) is not None}
+    if trained:
+        per_block = _grid_trainer(cfg, trainer).score_blocks(model.blocks, [
+            (key, _rows(test_cubes.raw, idx),
+             _rows(test_cubes.flow, idx) if use_flow else None)
+            for key, idx in trained.items()], batch_size=cube_batch,
+            compute_dtype=compute_dtype)
+        for key, idx in trained.items():
+            blk = model.blocks[key]
+            raw_sc, of_sc = per_block[key]
+            use_of = use_flow and blk.of_scores is not None
+            cube_scores[idx] = fuse_scores(
+                raw_sc, of_sc if use_of else None, blk.raw_stats,
+                blk.of_stats if use_of else None, mc.w_raw, mc.w_of)
+
+    keep = ~degenerate_boxes(test_cubes.boxes)
+    out = np.full(n_frames, -big_number, dtype=np.float32)
+    np.maximum.at(out, test_cubes.frame_ids[keep], cube_scores[keep])
+    return out

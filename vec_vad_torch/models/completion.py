@@ -17,6 +17,12 @@ Layout at the boundary: NHWC. Cube inputs are (K, P, P, T*3) raw /
 (K, P, P, T_of*2) flow, channel-stacked T-major; outputs (E, K, P, P, C).
 `forward(x, x_of)` is the eval forward serving uses; `forward(x, x_of,
 train=True, batch_weight=w)` the training forward (train/trainer.py).
+
+A net made with `blocks=G` is G independent ensembles folded into one
+network of G*E members, block-major (train/grid_trainer.py): it takes
+(g, K, P, P, C) inputs, block b's own cubes in row b, for any g <= G (the
+first g blocks run), and returns (g, E, K, P, P, C) outputs;
+`batch_weight` is then (g, K).
 """
 
 from __future__ import annotations
@@ -54,9 +60,11 @@ def _erase(x: torch.Tensor, k: int, ch: int, padding: bool) -> torch.Tensor:
 
 
 def _members_in(stack: torch.Tensor) -> torch.Tensor:
-    """(E, K, P, P, C) NHWC member stack -> (K, E*C, P, P) member-major."""
-    E, K, P, Q, C = stack.shape
-    return stack.permute(1, 0, 4, 2, 3).reshape(K, E * C, P, Q)
+    """(G, E, K, P, P, C) NHWC member stack -> (K, G*E*C, P, P),
+    block-major then member-major."""
+    G, E, K, P, Q, C = stack.shape
+    return stack.reshape(G * E, K, P, Q, C).permute(1, 0, 4, 2, 3).reshape(
+        K, G * E * C, P, Q)
 
 
 def _members_out(y: torch.Tensor, members: int) -> torch.Tensor:
@@ -72,9 +80,10 @@ class SelfCompletionNet(nn.Module):
                  tot_of_num: int = 1, border_mode: str = "predict",
                  raw_range: Optional[int] = None, use_flow: bool = True,
                  padding: bool = False, raw_channels: int = 3,
-                 of_channels: int = 2, device="cuda"):
+                 of_channels: int = 2, blocks: int = 1, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
+        self.blocks = blocks
         self.tot_raw_num = tot_raw_num
         self.tot_of_num = tot_of_num
         self.border_mode = border_mode
@@ -84,11 +93,11 @@ class SelfCompletionNet(nn.Module):
         self.raw_channels = raw_channels
         self.of_channels = of_channels
         in_ch = raw_channels * (tot_raw_num - (0 if padding else 1))
-        self.raw_unets = UNet(len(self.raw_positions), in_ch, features_root,
-                              raw_channels, dev)
+        self.raw_unets = UNet(blocks * len(self.raw_positions), in_ch,
+                              features_root, raw_channels, dev)
         self.of_unets = None
         if use_flow and self.flow_positions:
-            self.of_unets = UNet(len(self.flow_positions), in_ch,
+            self.of_unets = UNet(blocks * len(self.flow_positions), in_ch,
                                  features_root, of_channels, dev)
 
     @property
@@ -121,18 +130,25 @@ class SelfCompletionNet(nn.Module):
                 batch_weight: Optional[torch.Tensor] = None) -> CompletionOutput:
         """train=True uses (and updates) the BatchNorm batch statistics;
         batch_weight, an optional (K,) 0/1 pad mask, restricts them to the
-        weighted rows (vec_vad_tpu/models/completion.py:106-166)."""
+        weighted rows (vec_vad_tpu/models/completion.py:106-166). A
+        (g, K, P, P, C) x (with (g, K, ...) x_of and a (g, K)
+        batch_weight) runs the first g blocks of a grid net."""
+        grid = x.dim() == 5
+        if not grid:
+            x = x[None]
+            x_of = None if x_of is None else x_of[None]
+        G = x.shape[0]
         ch = self.raw_channels
         positions = self.raw_positions
         erased = torch.stack(
-            [_erase(x, k, ch, self.padding) for k in positions], dim=0
-        )  # (E, K, P, P, C_in)
+            [_erase(x, k, ch, self.padding) for k in positions], dim=1
+        )  # (G, E, K, P, P, C_in)
         raw_tgt = torch.stack(
-            [x[..., k * ch : (k + 1) * ch] for k in positions], dim=0
+            [x[..., k * ch : (k + 1) * ch] for k in positions], dim=1
         )
         E = len(positions)
         raw_out = _members_out(
-            self.raw_unets(_members_in(erased), train, batch_weight), E)
+            self.raw_unets(_members_in(erased), train, batch_weight), G * E)
 
         of_out = of_tgt = None
         if self.of_unets is not None:
@@ -142,20 +158,31 @@ class SelfCompletionNet(nn.Module):
             och = self.of_channels
             # stacked views: a list index would be copied to the device,
             # which waits for the stream, on every forward
-            flow_in = torch.stack([erased[positions.index(k)] for k, _ in fpos])
+            flow_in = torch.stack([erased[:, positions.index(k)] for k, _ in fpos],
+                                  dim=1)
             of_out = _members_out(
                 self.of_unets(_members_in(flow_in), train, batch_weight),
-                len(fpos))
+                G * len(fpos))
             assert x_of is not None, "use_flow=True requires x_of"
             of_tgt = torch.stack(
-                [x_of[..., i * och : (i + 1) * och] for _, i in fpos], dim=0
+                [x_of[..., i * och : (i + 1) * och] for _, i in fpos], dim=1
             )
+        if grid:
+            raw_out = raw_out.reshape(raw_tgt.shape[:2] + raw_out.shape[1:])
+            if of_out is not None:
+                of_out = of_out.reshape(of_tgt.shape[:2] + of_out.shape[1:])
+        else:
+            raw_tgt = raw_tgt[0]
+            if of_out is not None:
+                of_tgt = of_tgt[0]
         return CompletionOutput(raw_out, raw_tgt, of_out, of_tgt)
 
 
-def make_completion_net(cfg: CompletionConfig, device="cuda") -> SelfCompletionNet:
+def make_completion_net(cfg: CompletionConfig, device="cuda",
+                        blocks: int = 1) -> SelfCompletionNet:
     """The net the reference would select for this config
-    (train.py:260-268), in eval mode."""
+    (train.py:260-268), in eval mode; `blocks` > 1 folds that many
+    independent ensembles into one grid net."""
     return SelfCompletionNet(
         features_root=cfg.nf,
         tot_raw_num=cfg.tot_raw_num,
@@ -164,6 +191,7 @@ def make_completion_net(cfg: CompletionConfig, device="cuda") -> SelfCompletionN
         raw_range=cfg.resolved_raw_range,
         use_flow=cfg.use_flow,
         padding=cfg.padding,
+        blocks=blocks,
         device=device,
     ).eval()
 

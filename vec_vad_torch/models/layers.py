@@ -33,6 +33,12 @@ import torch.nn.functional as F
 from vec_vad_torch.device import resolve_device
 
 
+def _prefix(t: torch.Tensor, n: int) -> torch.Tensor:
+    """The first n rows of t (t itself when it has n): the members of the
+    blocks a grid step runs."""
+    return t if t.shape[0] == n else t[:n]
+
+
 class Conv(nn.Module):
     """E grouped k x k 'same' convolutions; weight (E*O, I, k, k)."""
 
@@ -41,14 +47,17 @@ class Conv(nn.Module):
         dev = resolve_device(device)
         k = kernel_size
         self.members, self.padding = members, k // 2
+        self.in_ch, self.features = in_ch, features
         self.weight = nn.Parameter(
             torch.empty(members * features, in_ch, k, k, device=dev)
         )
         self.bias = nn.Parameter(torch.empty(members * features, device=dev))
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, 1, self.padding, 1,
-                        self.members)
+        m = x.shape[1] // self.in_ch
+        n = m * self.features
+        return F.conv2d(x, _prefix(self.weight, n), _prefix(self.bias, n), 1,
+                        self.padding, 1, m)
 
 
 class ConvTranspose2x(nn.Module):
@@ -58,15 +67,17 @@ class ConvTranspose2x(nn.Module):
     def __init__(self, members, in_ch, features, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
-        self.members = members
+        self.members, self.in_ch, self.features = members, in_ch, features
         self.weight = nn.Parameter(
             torch.empty(members * in_ch, features, 3, 3, device=dev)
         )
         self.bias = nn.Parameter(torch.empty(members * features, device=dev))
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, self.bias, 2, 1, 1,
-                                  self.members)
+        m = x.shape[1] // self.in_ch
+        return F.conv_transpose2d(x, _prefix(self.weight, x.shape[1]),
+                                  _prefix(self.bias, m * self.features),
+                                  2, 1, 1, m)
 
 
 class BatchNorm(nn.Module):
@@ -76,7 +87,13 @@ class BatchNorm(nn.Module):
     statistics cover only the weighted rows, so a wrap-padded batch trains
     exactly like the bare partial batch (the reference trains its final
     batch unpadded, train.py:383-402). Rows with weight 0 are still
-    normalised, by the weighted rows' statistics."""
+    normalised, by the weighted rows' statistics. A (G, B) batch_weight
+    splits the channels into G equal runs (a grid's blocks), run g's
+    statistics over the rows of mask row g.
+
+    An input narrower than the layer (a grid step over its first blocks)
+    uses and updates the first x.shape[1] channels' parameters and
+    running statistics only."""
 
     def __init__(self, members, features, momentum=0.1, epsilon=1e-5,
                  device="cuda"):
@@ -89,27 +106,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(n, device=dev))
         self.register_buffer("running_var", torch.ones(n, device=dev))
 
+    def _params(self, c: int):
+        """(weight, bias, running_mean, running_var) of the first c channels."""
+        return tuple(_prefix(t, c) for t in (self.weight, self.bias,
+                                             self.running_mean, self.running_var))
+
     def forward(self, x, train: bool = False, batch_weight=None):
         if x.dtype != torch.float32:
             return self._forward_low_precision(x, train, batch_weight)
+        weight, bias, r_mean, r_var = self._params(x.shape[1])
         if not train or batch_weight is None:
             # torch's own batch norm: batch statistics in train mode, the
             # running ones updated with the unbiased variance
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, train,
+            return F.batch_norm(x, r_mean, r_var, weight, bias, train,
                                 self.momentum, self.epsilon)
-        w = batch_weight.to(x.dtype).reshape(-1, 1, 1, 1)
-        n = torch.clamp(batch_weight.sum() * (x.shape[2] * x.shape[3]), min=1.0)
-        mean = (x * w).sum(dim=(0, 2, 3)) / n
-        var = (w * (x - mean[:, None, None]).square()).sum(dim=(0, 2, 3)) / n
+        mean, var, n = _masked_stats(x, batch_weight)
         with torch.no_grad():
             m = self.momentum
             unbias = n / torch.clamp(n - 1.0, min=1.0)
-            self.running_mean.mul_(1 - m).add_(m * mean)
-            self.running_var.mul_(1 - m).add_(m * var * unbias)
+            r_mean.mul_(1 - m).add_(m * mean)
+            r_var.mul_(1 - m).add_(m * var * unbias)
         inv = torch.rsqrt(var + self.epsilon)
-        return ((x - mean[:, None, None]) * (inv * self.weight)[:, None, None]
-                + self.bias[:, None, None])
+        return ((x - mean[:, None, None]) * (inv * weight)[:, None, None]
+                + bias[:, None, None])
 
     def _forward_low_precision(self, x, train: bool, batch_weight):
         """A bf16 x with the JAX package's cast points
@@ -119,9 +138,10 @@ class BatchNorm(nn.Module):
         given (bf16 copies of the f32 masters while training), and the
         running statistics stay in their own dtype (f32 while training)."""
         dims = (0, 2, 3)
+        weight, bias, r_mean, r_var = self._params(x.shape[1])
         if not train:
-            mean = self.running_mean.to(x.dtype)
-            var = self.running_var.to(x.dtype)
+            mean = r_mean.to(x.dtype)
+            var = r_var.to(x.dtype)
         else:
             if batch_weight is None:
                 n = float(x.numel() // x.shape[1])
@@ -129,21 +149,34 @@ class BatchNorm(nn.Module):
                 var = (x - mean[:, None, None]).square().mean(dim=dims)
                 var_unbiased = var * (n / max(n - 1.0, 1.0))
             else:
-                w = batch_weight.to(x.dtype).reshape(-1, 1, 1, 1)
-                n = torch.clamp(batch_weight.float().sum() * (x.shape[2] * x.shape[3]),
-                                min=1.0)
-                n_x = n.to(x.dtype)  # the statistics stay in the compute dtype
-                mean = (x * w).sum(dim=dims) / n_x
-                var = (w * (x - mean[:, None, None]).square()).sum(dim=dims) / n_x
-                # the f32 count promotes the variance (jnp's array promotion)
+                # the statistics stay in the compute dtype; the f32 count
+                # promotes the variance (jnp's array promotion)
+                mean, var, n = _masked_stats(x, batch_weight)
                 var_unbiased = var.float() * (n / torch.clamp(n - 1.0, min=1.0))
             m = self.momentum
             with torch.no_grad():
-                self.running_mean.mul_(1 - m).add_(m * mean.detach())
-                self.running_var.mul_(1 - m).add_(m * var_unbiased.detach())
+                r_mean.mul_(1 - m).add_(m * mean.detach())
+                r_var.mul_(1 - m).add_(m * var_unbiased.detach())
         inv = torch.rsqrt(var + self.epsilon)
         return ((x - mean[:, None, None]) * inv[:, None, None]
-                * self.weight[:, None, None] + self.bias[:, None, None])
+                * weight[:, None, None] + bias[:, None, None])
+
+
+def _masked_stats(x, batch_weight):
+    """(mean, var, n) per channel of an (B, C, H, W) x over the rows a (B,)
+    or (G, B) 0/1 batch_weight marks: mean and var in x's dtype, n the f32
+    count of weighted elements. Mask row g covers channels
+    [g*C/G, (g+1)*C/G)."""
+    B, C, H, W = x.shape
+    wt = batch_weight.reshape(-1, B)  # (G, B)
+    G = wt.shape[0]
+    w = wt.t().to(x.dtype).reshape(B, G, 1, 1, 1)
+    xv = x.reshape(B, G, C // G, H, W)
+    n = torch.clamp(wt.float().sum(dim=1) * (H * W), min=1.0)[:, None]  # (G, 1)
+    n_x = n.to(x.dtype)
+    mean = (xv * w).sum(dim=(0, 3, 4)) / n_x  # (G, C/G)
+    var = (w * (xv - mean[:, :, None, None]).square()).sum(dim=(0, 3, 4)) / n_x
+    return mean.reshape(C), var.reshape(C), n.expand(G, C // G).reshape(C)
 
 
 class DoubleConv(nn.Module):
@@ -182,14 +215,15 @@ class UNet(nn.Module):
     shape): inconv -> 3x(maxpool+double_conv) -> 3x(convT-up + skip
     concat + double_conv) -> 1x1 outconv. Channels f, 2f, 4f, 8f.
 
-    forward: (N, E*in_ch, P, P) -> (N, E*out_ch, P, P), member-major;
+    forward: (N, E*in_ch, P, P) -> (N, E*out_ch, P, P), member-major (or
+    the first m members: (N, m*in_ch, P, P) -> (N, m*out_ch, P, P));
     `train` and `batch_weight` go to every BatchNorm."""
 
     def __init__(self, members, in_ch, features_root, out_channels,
                  device="cuda"):
         super().__init__()
         E, f, d = members, features_root, device
-        self.members = E
+        self.members, self.in_ch = E, in_ch
         self.down = nn.ModuleList([
             DoubleConv(E, in_ch, f, d),
             DoubleConv(E, f, 2 * f, d),
@@ -210,11 +244,12 @@ class UNet(nn.Module):
 
     def forward(self, x, train: bool = False, batch_weight=None):
         t, w = train, batch_weight
+        m = x.shape[1] // self.in_ch
         x1 = self.down[0](x, t, w)
         x2 = self.down[1](max_pool_2x(x1), t, w)
         x3 = self.down[2](max_pool_2x(x2), t, w)
         x4 = self.down[3](max_pool_2x(x3), t, w)
         y = x4
         for skip, up_t, up in zip((x3, x2, x1), self.up_t, self.up):
-            y = up(_cat_members(self.members, skip, up_t(y)), t, w)
+            y = up(_cat_members(m, skip, up_t(y)), t, w)
         return self.out(y)

@@ -8,7 +8,9 @@
     static-shape analog of the reference's nested foreground_set lists,
     train.py:103-237, test.py:129-191);
   * training and scoring run block by block (train.trainer.BlockTrainer,
-    the reference's sequential loop, train.py:270-296);
+    the reference's sequential loop, train.py:270-296), or for a uint8
+    multi-block grid with every block folded into one network
+    (train.grid_trainer.GridTrainer), routed as the JAX package routes;
   * frame-level scores aggregate by segment max (score.scoring).
 
 Also the trained-model containers serving reads (VadModel, TrainedBlock),
@@ -27,9 +29,6 @@ pixel_score_masks splats on the host: unlike the JAX package it does
 not route large splits to the device splat (score.scoring.
 splat_score_masks_device), which was slower than the host's on the H100
 at every size measured (PERF.md section 5).
-
-Not ported (ROADMAP.md Queue 1): the parallel GridTrainer and its
-multi-block auto-selection (item 2.8).
 """
 
 from __future__ import annotations
@@ -435,13 +434,17 @@ def make_trainer(cfg: PipelineConfig, device="cuda"):
     return BlockTrainer(cfg.model, cfg.fore.patch_size, device)
 
 
-def _refuse_grid(parallel_blocks: Optional[bool]) -> None:
-    if parallel_blocks:
-        raise NotImplementedError(
-            "parallel block training (GridTrainer) is not ported: "
-            "ROADMAP.md Queue 1 item 2.8; the port trains blocks in "
-            "sequence (parallel_blocks=None or False)"
-        )
+def _grid_trainer(cfg: PipelineConfig, trainer):
+    """The grid trainer on `trainer`'s device."""
+    from vec_vad_torch.train.grid_trainer import GridTrainer
+
+    return GridTrainer(cfg.model, cfg.fore.patch_size, trainer.device)
+
+
+def _is_uint8(a) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.dtype == torch.uint8
+    return a.dtype == np.uint8
 
 
 def train_model(
@@ -453,14 +456,33 @@ def train_model(
     parallel_blocks: Optional[bool] = None,
     device="cuda",
 ) -> VadModel:
-    """Train the per-(scene, h, w) block grid, block after block (the
-    reference's loop, train.py:270-296) on `device`, or on `trainer`'s
-    device when one is given."""
-    _refuse_grid(parallel_blocks)
+    """Train the per-(scene, h, w) block grid on `device`, or on
+    `trainer`'s device when one is given.
+
+    parallel_blocks: train every eligible block (more than one cube)
+    together, folded into one network (GridTrainer), instead of block
+    after block (the reference's loop, train.py:270-296). Default: as the
+    JAX package selects (vec_vad_tpu/pipeline.py:483-493), the grid
+    exactly when the cubes are uint8 (float cubes would be quantised and
+    shift the training-score statistics), more than one block is eligible
+    and none needs segment streaming."""
     groups = group_by_block(train_cubes)
     seg = cfg.fore.save_seg_num
+    eligible = {k: v for k, v in groups.items() if v.size > 1}
+    if parallel_blocks is None:
+        parallel_blocks = (
+            _is_uint8(train_cubes.raw)
+            and len(eligible) > 1
+            and all(v.size <= seg for v in eligible.values())
+        )
     trainer = trainer or make_trainer(cfg, device)
     model = VadModel(cfg=cfg)
+    if parallel_blocks and eligible:
+        block_data = [(key, _rows(train_cubes.raw, idx), _rows(train_cubes.flow, idx))
+                      for key, idx in eligible.items()]
+        model.blocks = _grid_trainer(cfg, trainer).fit_blocks(
+            block_data, seed=seed, log_every=log_every)
+        return model
     for key, idx in groups.items():
         if idx.size <= 1:
             # the reference skips blocks with < 2 cubes (train.py:370)
@@ -499,22 +521,34 @@ def score_cubes(
     big_number: float = BIG_NUMBER,
     device="cuda",
 ) -> np.ndarray:
-    """Fused, z-normalized anomaly score per test cube (test.py:269-348),
-    block after block on `device` (or `trainer`'s)."""
+    """Fused, z-normalized anomaly score per test cube (test.py:269-348)
+    on `device` (or `trainer`'s): block after block, or, for more than one
+    trained block and uint8 cubes, every block folded into one forward per
+    batch (GridTrainer.score_blocks), as the JAX package routes
+    (vec_vad_tpu/pipeline.py:579-604)."""
     cfg = model.cfg
     trainer = trainer or make_trainer(cfg, device)
     mc = cfg.model
     scores = np.zeros(test_cubes.size, dtype=np.float64)
     groups = group_by_block(test_cubes)
+    trained = {k: v for k, v in groups.items() if model.blocks.get(k) is not None}
     for key, idx in groups.items():
-        block = model.blocks.get(key)
-        if block is None:
+        if key not in trained:
             # objects in a block never seen in training -> anomaly
             # (test.py:308-310)
             scores[idx] = big_number
-            continue
-        raw_sc, of_sc = trainer.score_block(block, _rows(test_cubes.raw, idx),
-                                            _rows(test_cubes.flow, idx))
+    if len(trained) > 1 and _is_uint8(test_cubes.raw):
+        per_block = _grid_trainer(cfg, trainer).score_blocks(model.blocks, [
+            (key, _rows(test_cubes.raw, idx), _rows(test_cubes.flow, idx))
+            for key, idx in trained.items()])
+    else:
+        per_block = {key: trainer.score_block(model.blocks[key],
+                                              _rows(test_cubes.raw, idx),
+                                              _rows(test_cubes.flow, idx))
+                     for key, idx in trained.items()}
+    for key, idx in trained.items():
+        block = model.blocks[key]
+        raw_sc, of_sc = per_block[key]
         use_of = mc.use_flow and block.of_scores is not None
         scores[idx] = fuse_scores(
             raw_sc,

@@ -37,13 +37,16 @@ are cast back to f32 before the masked mean. The casts are explicit
 whose cast points differ. The training-score pass after the fit runs in
 f32 whatever the compute dtype, as make_score_step does.
 
-Not ported (ROADMAP.md Queue 1): the parallel GridTrainer (item 2.8) and
-fit_block_budget (item 2.11).
+Many blocks train together, folded into one network, in
+train/grid_trainer.py (GridTrainer), which reuses this trainer's init and
+schedule. `fit_block_budget` itemises a fit_block's wall by phase.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple, Union
+
+import time
 
 import numpy as np
 import torch
@@ -337,6 +340,51 @@ class BlockTrainer(nn.Module):
             of_scores=np.concatenate([o for _, o in scores]) if has_of else None,
             losses=losses[:, 0],
         )
+
+    def fit_block_budget(self, raw_inputs: Cubes, of_inputs: Optional[Cubes] = None,
+                         seed: int = 0) -> Dict[str, float]:
+        """Itemised wall of one fit_block, in seconds
+        (vec_vad_tpu/train/trainer.py:492-566), each phase ended by a
+        device synchronisation on the card (none on the CPU):
+
+          init_state_s       init_state + loading it and a fresh Adam
+          schedule_host_s    the epoch permutations and idx/wmask (host)
+          upload_s           uint8 quantisation (float cubes) + the cube
+                             and flow uploads
+          train_scan_s       the step loop (schedule upload, steps, the
+                             losses' download)
+          score_pass_s       the training-score pass and its download
+          param_download_s   the weights to the host
+
+        Runs twice and keeps the second (warm) run; the trajectory is
+        fit_block's (same seed, same scores), and the net keeps the
+        trained weights."""
+        sync = ((lambda: torch.cuda.synchronize(self.device))
+                if self.device.type == "cuda" else (lambda: None))
+        out: Dict[str, float] = {}
+
+        def phase(name, fn):
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            out[name] = time.perf_counter() - t0
+            return res
+
+        with full_f32():
+            for _ in range(2):
+                phase("init_state_s", lambda: self.start_fit(self.init_state(seed)))
+                idx, wmask = phase("schedule_host_s", lambda: self._epoch_schedule(
+                    raw_inputs.shape[0], np.random.default_rng(seed)))
+                buf, of_buf = phase("upload_s", lambda: (
+                    self.upload(_quantize_u8(raw_inputs)),
+                    self.upload_flow(of_inputs, raw_inputs.shape)))
+                segs = np.zeros(idx.shape[0], np.int64)
+                phase("train_scan_s", lambda: self._run_steps(
+                    [buf], [of_buf], segs, idx, wmask))
+                phase("score_pass_s", lambda: self._score(buf, of_buf))
+                phase("param_download_s", self.state)
+        out["total_s"] = sum(out.values())
+        return out
 
     def _score(self, buf: torch.Tensor, of_buf: Optional[torch.Tensor],
                batch_size: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
