@@ -8,7 +8,10 @@ and without live flow, the serve CLI), then computes foreground boxes
 from the frames and serves with them computed in the loop, runs the
 converted mmdet Cascade R-CNN behind `mmdet_checkpoint`, and trains and
 scores a 2x2 model grid with its blocks folded into one network, then
-takes it out to the reference's model_set files and back.
+takes it out to the reference's model_set files and back, and drives the
+tooling: the frame decoder's refusal where its libraries are missing,
+calc-flow -> train -> test -> visualize on avenue's layout through the
+CLI, the layer profiler, the with_bn FlowNets and GradTaps.
 
     python3 chip_smoke.py
 
@@ -223,6 +226,37 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      training scores bit for bit, `run_test` on the imported model within
      1e-6 of the original's; (g) `python -m vec_vad_torch demo` in its own
      process: exit 0 and a finite AUROC. No K1 or K2 launch in the phase.
+ 13. tooling: (a) the native frame decoder on this machine, which has no
+     libjpeg, libpng or libtiff: its build fails (or a library built
+     elsewhere does not load) and make_frame_stack raises for the
+     committed fixture jpgs (tests/data/frames) instead of falling back;
+     (b) avenue's layout at 360x640, 2 + 2 videos of 40 .npy frames
+     cycled from the fixture jpgs' cv2 decode (decoded.npz), with .mat
+     GT marking the frames of the anomalous fixture, and the 5raw1of
+     model (nf=32, patch 32, batch 128) for 1 epoch: `calc-flow` (one K1
+     launch a batch of 4), `train` and `test --save-masks` through
+     cli.main on motion-only boxes load_split computes, every frame stack
+     made through runner.make_frame_stack and calc-flow's frames equal to
+     the fixture's arrays, maps/s, a finite AUROC; (c) `visualize
+     --masks ... --flow-dir ... --config` through cli.main: 3 x 40 PNGs,
+     nine of them byte for byte the PNG encoding of visualize_score,
+     score_mask_overlay and flow_to_image (this machine has no libpng to
+     decode them); (d) the layer profiler: the UNet's 3x3 convolutions at
+     batch 512 in f32 and bf16, the four ensemble layouts at (128, E=4,
+     32, 32) in both dtypes (vmap, grouped and blockdiag within 1e-5 of
+     the largest output in f32, sharedw_batch on member 0), the FLOPs of
+     a cube beside the JAX package's constant, the completion net's fwd
+     and fwdbwd at 128 and 1024 cubes, each as ms, TFLOP/s and share of
+     the card's peak; (e) FlowNet2(with_bn=True) with seeded BatchNorm
+     statistics through a reference-keyed .pth and load_flownet_checkpoint,
+     (1, 2, 384, 512, 3) card against CPU (1e-3 of the largest |flow|),
+     its forward ms beside with_bn=False's (CUDA events), K1 on its conv3
+     features, one K1 launch a forward; a train-mode FlowNetC(with_bn=
+     True) at batch 8: running statistics card against CPU (1e-5 of each
+     tensor's largest); (f) a GradTaps tap on FlowNetC's conv6_1 under a
+     loss on flow6, equal to autograd's gradient of the tapped tensor on
+     each device, the card's against the CPU's (1e-4 of the largest
+     gradient), one K1 and one K2 launch.
 
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
@@ -474,6 +508,38 @@ SEG_REL_TOL = 1e-4
 # tree: bf16 weights and activations through FlowNet2's five nets, ~3
 # significant digits a layer; 1.684e-02 observed on an H100, bound 3x that
 BF16_REL_TOL = 0.05
+
+
+# tooling (phase 13): avenue's geometry and layout, 2 + 2 videos of 40
+# frames cycled from the committed fixture jpgs (tests/data/frames, their
+# cv2 decode in decoded.npz) as .npy frames, since the card's machine has
+# no libjpeg/libpng/libtiff for the native decoder; the two-stream model
+# at the flagship width for 1 epoch. The frames cycled from avenue_1.jpg
+# (the generator's anomalous random-texture square) are the test GT's
+TL_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_tooling"
+TL_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "frames"
+TL_JPGS = ("avenue_0.jpg", "avenue_1.jpg", "avenue_2.jpg")
+TL_ANOMALOUS = 1  # index in TL_JPGS
+TL_LENGTHS = {"Train": (40, 40), "Test": (40, 40)}
+TL_CFG = PipelineConfig(
+    dataset_name="avenue", fore=ForegroundConfig(patch_size=32),
+    model=CompletionConfig(nf=32, context_frame_num=4, context_of_num=0, epochs=1,
+                           use_flow=True, border_mode="predict"),
+)
+TL_LIMIT = 40  # score masks and flow maps `visualize` renders
+# the completion program probes: the JAX package's batches, 3 calls a
+# window (a fwdbwd pass at 1024 cubes takes a few hundred ms)
+PROFILE_BATCHES, PROFILE_ITERS = (128, 1024), 3
+# card vs CPU running statistics after one train-mode forward of a with_bn
+# FlowNetC, relative to each tensor's largest value: the means and
+# variances of f32 activations summed in other orders
+BN_STATS_TOL = 1e-5
+# card vs CPU gradient stored by a GradTaps tap, relative to its largest
+# |value|: FlowNetC's forward convolutions in other orders, then one
+# linear map back. A tap deeper in the backward (conv3_1 under a loss on
+# flow2) came 2.3e-3 apart on an H100: wherever the two devices round a
+# pre-activation to the other side of 0, LeakyReLU's slope differs 10x
+TAP_REL_TOL = 1e-4
 
 
 def check(ok: bool, what) -> None:
@@ -3168,6 +3234,312 @@ def grid_phase() -> None:
     shutil.rmtree(GR_BASE, ignore_errors=True)
 
 
+def write_tooling_tree(root: Path) -> np.ndarray:
+    """avenue's layout (training/frames/NN, testing/frames/NN) of .npy
+    frames cycled from the committed fixture jpgs' decoded arrays
+    (decoded.npz, cv2's decode), with test GT marking the frames cycled
+    from the anomalous fixture (its random-texture square) as
+    ground_truth_demo/testing_label_mask/<v>_label.mat. Returns every
+    frame written, train then test, in the runner's order."""
+    import scipy.io
+
+    stored = np.load(TL_FIXTURES / "decoded.npz")
+    cycle = [stored[k] for k in TL_JPGS]
+    written = []
+    for split, lengths in TL_LENGTHS.items():
+        for v, n in enumerate(lengths):
+            d = root / f"{split.lower()}ing" / "frames" / f"{v + 1:02d}"
+            d.mkdir(parents=True)
+            src = [(v + t) % len(cycle) for t in range(n)]
+            for t, s in enumerate(src):
+                np.save(d / f"{t:04d}.npy", cycle[s])
+                written.append(cycle[s])
+            if split == "Test":
+                gt = root / "ground_truth_demo" / "testing_label_mask"
+                gt.mkdir(parents=True, exist_ok=True)
+                vol = np.empty((1, n), dtype=object)
+                vol[0, :] = [np.full(TS_HW, int(s == TL_ANOMALOUS), np.uint8) for s in src]
+                scipy.io.savemat(gt / f"{v + 1}_label.mat", {"volLabel": vol},
+                                 do_compression=True)
+    return np.stack(written)
+
+
+def peak_share(tps: float, dtype: str) -> str:
+    peak = PEAK_FLOPS[getattr(torch, dtype)] / 1e12
+    return f"{tps:.1f} TFLOP/s ({100 * tps / peak:.1f} % of {peak:.0f})"
+
+
+def random_bn_stats_(net, seed: int):
+    """Seeded BatchNorm affine maps and running statistics for a with_bn
+    net (the JAX package's init leaves them at 1, 0, 0, 1)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for _, m in sorted(net.named_modules(), key=lambda kv: kv[0]):
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                for t, v in ((m.weight, rng.uniform(0.5, 1.5, n)),
+                             (m.bias, rng.normal(0, 0.1, n)),
+                             (m.running_mean, rng.normal(0, 0.5, n)),
+                             (m.running_var, rng.uniform(0.5, 2.0, n))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+    return net
+
+
+def tooling_phase() -> dict:
+    """The decoder's state on this machine, a real avenue configuration
+    through the CLI, `visualize`, the layer profiler, the with_bn nets and
+    GradTaps (module docstring, phase 13). Returns K1's and K2's launches
+    and K1's largest error against its plain version."""
+    from vec_vad_torch.models.flownet import FlowNet2, load_flownet_checkpoint
+    from vec_vad_torch.models.flownet.convert import reference_key
+    from vec_vad_torch.models.flownet.nets import FlowNetC, init_flownet_
+    from vec_vad_torch.runtime import layer_profile as lp
+    from vec_vad_torch.runtime import native_loader as nl
+    from vec_vad_torch.utils.flowviz import flow_to_image
+    from vec_vad_torch.utils.gradtap import GradTaps
+    from vec_vad_torch.utils.png import encode_png
+    from vec_vad_torch.utils.visualize import score_mask_overlay, visualize_score
+
+    shutil.rmtree(TL_BASE, ignore_errors=True)
+    launches = {"correlation": 0, "correlation_bwd": 0}
+    fwd_err = 0.0
+
+    # (a) the native decoder: this machine has no libjpeg/libpng/libtiff
+    # headers, so its build must fail and make_frame_stack must refuse the
+    # fixture jpgs rather than fall back
+    jpg_paths = [str(TL_FIXTURES / k) for k in TL_JPGS]
+    try:
+        nl.make_frame_stack(VideoIndex(["fixtures"], [len(jpg_paths)], jpg_paths))
+    except nl.NativeBuildError as e:
+        # a missing header (the build), or a missing library (a library
+        # built elsewhere, which does not load here)
+        missing = sorted(set(re.findall(r"(\w+\.h): No such file|(lib\w+\.so[.\d]*): "
+                                        r"cannot open", str(e))))
+        print(f"tooling: (a) the native decoder does not build or load here (missing "
+              f"{[m for pair in missing for m in pair if m]}); make_frame_stack raised "
+              "NativeBuildError for the fixture .jpg frames, no fallback. Decode "
+              "frames/s: not measured on this machine", flush=True)
+        check(bool(missing), f"no missing header or library in: {str(e)[-500:]}")
+    else:
+        check(False, "the native decoder built: phase 13 (a) expects this machine to "
+                     "lack the image headers, so it must now check decoding instead")
+
+    # (b) avenue's layout at 360x640 with .npy frames (no file_ext=.jpg
+    # reader here): calc-flow, train, test --save-masks through cli.main
+    config.register_dataset(dataclasses.replace(config.DATASETS["avenue"], file_ext=".npy",
+                                                frame_h=TS_HW[0], frame_w=TS_HW[1]))
+    root = TL_BASE / "raw_datasets" / "avenue"
+    t0 = time.perf_counter()
+    written = write_tooling_tree(root)
+    n_tr, n_te = sum(TL_LENGTHS["Train"]), sum(TL_LENGTHS["Test"])
+    print(f"tooling: (b) wrote {n_tr} + {n_te} frames at {TS_HW} cycled from "
+          f"{TL_JPGS} in {time.perf_counter() - t0:.1f} s (set-up)", flush=True)
+    mc = TL_CFG.model
+    ini = TL_BASE / "config.cfg"
+    ini.write_text(
+        f"[shared_parameters]\ndataset_name = avenue\n[avenue]\npatch_size = "
+        f"{TL_CFG.fore.patch_size}\n[SelfComplete]\nnf = {mc.nf}\ncontext_frame_num = "
+        f"{mc.context_frame_num}\ncontext_of_num = {mc.context_of_num}\nuseFlow = "
+        f"{mc.use_flow}\nepochs = {mc.epochs}\nbatch_size = {mc.batch_size}\n")
+    common = ["--config", str(ini), "--base", str(TL_BASE)]
+    stacks = []
+    make = runner.make_frame_stack
+    runner.make_frame_stack = lambda index: stacks.append(make(index)) or stacks[-1]
+    try:
+        kernels.reset_launch_counts()
+        _, calc_wall = timed(lambda: serve_cli(["calc-flow"] + common))
+        calc_k1 = kernels.launch_counts["correlation"]
+        calc_stacks = list(stacks)
+        _, train_wall = timed(lambda: serve_cli(["train"] + common))
+        test_out, test_wall = timed(lambda: serve_cli(["test", "--save-masks"] + common))
+        check(kernels.launch_counts["correlation"] == calc_k1,
+              f"K1 launched in train/test: {dict(kernels.launch_counts)}")
+    finally:
+        runner.make_frame_stack = make
+    launches["correlation"] += calc_k1
+    batches = flow_batches([n_tr, n_te], 4)
+    print(f"tooling: (b) calc-flow {n_tr + n_te} maps in {calc_wall:.2f} s, "
+          f"{(n_tr + n_te) / calc_wall:.1f} maps/s (f32, batches of 4, FlowNet2 set-up "
+          f"included), K1 launches {calc_k1} for {batches} batches; train (1 epoch) "
+          f"{train_wall:.2f} s; test --save-masks {test_wall:.2f} s", flush=True)
+    check(calc_k1 == batches, f"K1 launches {calc_k1} for {batches} calc-flow batches")
+    check(all(isinstance(s, readers.LazyFrameStack) for s in stacks) and len(stacks) >= 4,
+          f"frame stacks {[type(s).__name__ for s in stacks]}")
+    got = np.concatenate([np.asarray(s) for s in calc_stacks])
+    check(got.shape == written.shape and np.array_equal(got, written),
+          "calc-flow's frames against the fixture's arrays")
+    masks_path = TL_BASE / "results" / "avenue" / "score_masks.npy"
+    masks = np.load(masks_path)
+    check(masks.shape == (n_te,) + TS_HW, f"score masks {masks.shape}")
+    auroc = re.search(r"frame-level AUROC: ([0-9.]+)", test_out)
+    check(auroc is not None and np.isfinite(float(auroc.group(1))), "test's AUROC")
+    print(f"tooling: (b) {len(stacks)} frame stacks, all LazyFrameStack over .npy, "
+          f"calc-flow's frames equal to the fixture's arrays; score masks "
+          f"{masks.shape}, AUROC {auroc.group(1)}", flush=True)
+
+    # (c) visualize through cli.main: score masks and overlays on the test
+    # split (--config), flow wheels of the calc-flow tree
+    out_dir = TL_BASE / "visualize"
+    of_root = TL_BASE / "optical_flow" / "avenue"
+    _, vis_wall = timed(lambda: serve_cli(
+        ["visualize", "--masks", str(masks_path), "--flow-dir", str(of_root),
+         "--limit", str(TL_LIMIT), "--out", str(out_dir)] + common))
+    pngs = sorted(out_dir.glob("*.png"))
+    check(len(pngs) == 3 * TL_LIMIT, f"{len(pngs)} PNGs for {TL_LIMIT} masks and maps")
+    test_frames = written[n_tr:]
+    flows = sorted(of_root.rglob("*.npy"))
+    for i in (0, TL_LIMIT // 2, TL_LIMIT - 1):
+        want = {f"score_{i:06d}.png": visualize_score(masks[i]),
+                f"overlay_{i:06d}.png": score_mask_overlay(test_frames[i], masks[i])}
+        rel = flows[i].relative_to(of_root)
+        want["flow_" + str(rel).replace("/", "_") + ".png"] = \
+            flow_to_image(np.load(flows[i]))[:, :, ::-1]
+        for name, img in want.items():
+            check((out_dir / name).read_bytes() == encode_png(img),
+                  f"{name} differs from its rendering")
+    print(f"tooling: (c) visualize wrote {len(pngs)} PNGs in {vis_wall:.2f} s; 9 of them "
+          "byte for byte the PNG encoding of visualize_score, score_mask_overlay and "
+          "flow_to_image (no PNG decoder here: libpng is missing)", flush=True)
+
+    # (d) the layer profiler (CUDA events, windows of >= MIN_WALL_S)
+    t0 = time.perf_counter()
+    table = lp.profile_unet_convs(batch=512)
+    print(f"tooling: (d) UNet 3x3 convolutions at batch 512 (NCHW, f32 with TF32 off):")
+    for name, row in table.items():
+        print("  " + name.ljust(8) + "  ".join(
+            f"{d} {ms:.4f} ms {peak_share(tps, d)}" for d, (ms, tps) in row.items()))
+    for dt in (torch.float32, torch.bfloat16):
+        res = lp.profile_ensemble_formulations(batch=128, members=4, H=32, C=32, dtype=dt)
+        name = lp._dtype_name(dt)
+        print(f"tooling: (d) ensemble layouts at (128, E=4, 32, 32) {name}: " + "; ".join(
+            f"{k} {ms:.4f} ms {peak_share(tps, name)}" for k, (ms, tps) in res.items())
+            + f"; grouped / vmap {res['grouped'][0] / res['vmap'][0]:.3f}")
+    outs = lp.ensemble_formulation_outputs(batch=128, members=4, H=32, C=32, device="cuda")
+    ref = outs["vmap"]
+    errs = {k: float((v - ref).abs().max() / ref.abs().max()) for k, v in outs.items()
+            if k != "sharedw_batch"}
+    errs["sharedw_batch member 0"] = float((outs["sharedw_batch"][0] - ref[0]).abs().max()
+                                           / ref.abs().max())
+    print(f"tooling: (d) layouts against vmap, f32, max |diff| / max |out|: {errs}")
+    check(max(errs.values()) <= 1e-5, f"ensemble layouts disagree: {errs}")
+    del outs, ref
+    net_cpu = make_completion_net(CompletionConfig(nf=32, context_of_num=0, use_flow=False),
+                                  device="cpu")
+    flops = lp.completion_fwd_flops(net_cpu)
+    flops_valid = lp.completion_fwd_flops(net_cpu, padding_taps=False)
+    print(f"tooling: (d) one cube's forward: {flops:.4e} FLOPs counted from the port's "
+          f"layers (5 members, padding taps included), {flops_valid:.4e} without the "
+          f"padding's taps; vec_vad_tpu's FLAGSHIP_PER_CUBE_FWD_FLOPS "
+          f"{lp.FLAGSHIP_PER_CUBE_FWD_FLOPS:.4e}")
+    for mode in ("fwd", "fwdbwd"):
+        res = lp.profile_completion_program(batches=PROFILE_BATCHES, mode=mode,
+                                            iters=PROFILE_ITERS)
+        for k, (ms, tps) in res.items():
+            print(f"tooling: (d) SelfCompletionNet {k}: {ms:.3f} ms "
+                  f"{peak_share(tps, k.rsplit('_', 1)[1])}")
+    print(f"tooling: (d) profiler {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e) the with_bn nets: FlowNet2 from a reference-keyed checkpoint with
+    # seeded BatchNorm statistics, card against CPU; a train-mode FlowNetC
+    src = random_bn_stats_(init_flownet_(FlowNet2(with_bn=True, device="cpu"), SEED), SEED + 13)
+    ckpt = TL_BASE / "flownet2_bn.pth"
+    torch.save({"state_dict": {reference_key(k): v for k, v in src.state_dict().items()
+                               if not k.endswith("num_batches_tracked")}}, ckpt)
+    del src
+    nets = {}
+    for dev in ("cpu", "cuda"):
+        nets[dev] = FlowNet2(with_bn=True, device=dev).eval()
+        report = load_flownet_checkpoint(nets[dev], str(ckpt))
+        check(not report["missing"] and any(".1.running_var" in k for k in report["matched"]),
+              f"BN checkpoint load: {len(report['matched'])} matched, {report['missing'][:3]}")
+    rng = np.random.default_rng(SEED + 14)
+    pair = rng.uniform(0, 255, (1, 2) + FLOW_HW + (3,)).astype(np.float32)
+    conv3 = []
+    hook = nets["cuda"].flownetc.conv3.register_forward_hook(
+        lambda m, i, o: conv3.append(o.detach().clone()))
+    xp = torch.from_numpy(pair).cuda()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = nets["cuda"](xp)
+        torch.cuda.synchronize()
+        forwards = 1
+        hook.remove()
+        bn_ms = cuda_ms(lambda: nets["cuda"](xp), reps=10)
+        forwards += 13
+        plain = make_flownet2(SEED, device="cuda")
+        plain_ms = cuda_ms(lambda: plain(xp), reps=10)
+        forwards += 13
+        del plain
+        bn_launches = kernels.launch_counts["correlation"]
+        want = nets["cpu"](torch.from_numpy(pair))
+    launches["correlation"] += bn_launches
+    fwd_err = max(fwd_err, check_fwd(conv3[0].contiguous(), conv3[1].contiguous()))
+    rel = rel_diff(got.cpu().numpy(), want.numpy())
+    print(f"tooling: (e) FlowNet2(with_bn=True) from a reference-keyed checkpoint "
+          f"({len(report['matched'])} tensors), {tuple(pair.shape)} card vs CPU max |diff| "
+          f"/ max |flow| {rel:.3e} (bound {LIVE_FLOW_TOL}); forward {bn_ms:.3f} ms against "
+          f"with_bn=False {plain_ms:.3f} ms (CUDA events, 10 reps); K1 on its conv3 "
+          f"features max_abs_err={fwd_err:.3e}", flush=True)
+    check(rel <= LIVE_FLOW_TOL, f"with_bn FlowNet2 card vs CPU {rel}")
+    check(bn_launches == forwards, f"K1 launches {bn_launches} for {forwards} forwards")
+    del nets, got, want, xp
+    x = rng.normal(size=(8,) + FLOW_HW + (6,)).astype(np.float32)
+    stats = {}
+    for dev in ("cpu", "cuda"):
+        net = random_bn_stats_(init_flownet_(FlowNetC(True, device=dev), SEED + 15), SEED + 16)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            net(torch.from_numpy(x).to(dev), True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            check(kernels.launch_counts["correlation"] == 1, "K1 in the train-mode forward")
+            launches["correlation"] += 1
+        stats[dev] = {k: v.cpu() for k, v in net.state_dict().items() if "running" in k}
+        del net
+    worst = max(rel_diff(stats["cuda"][k], stats["cpu"][k]) for k in stats["cpu"])
+    print(f"tooling: (e) FlowNetC(with_bn=True) train-mode forward at {x.shape}: "
+          f"{len(stats['cpu'])} running statistics, card vs CPU worst max |diff| / max "
+          f"|value| {worst:.3e} (bound {BN_STATS_TOL})", flush=True)
+    check(worst <= BN_STATS_TOL, f"running statistics card vs CPU {worst}")
+
+    # (f) GradTaps: the gradient into FlowNetC's conv6_1 output from a loss
+    # on flow6 (downstream of the tap only predict_flow6, a linear map, so
+    # no LeakyReLU slope flips between the card and the CPU), the backward
+    # reaching the cost volume (K2); the tap against autograd's gradient of
+    # the same tensor, bit for bit, and the card's tap against the CPU's
+    xs = rng.uniform(-1, 1, (2,) + FLOW_HW + (6,)).astype(np.float32)
+    w6 = rng.normal(size=(2, FLOW_HW[0] // 64, FLOW_HW[1] // 64, 2)).astype(np.float32)
+    taps = {}
+    for dev in ("cpu", "cuda"):
+        net = make_flow_net("FlowNetC", SEED, dev)
+        tap, tapped = GradTaps(), []
+        hook = net.conv6_1.register_forward_hook(
+            lambda m, i, o: tapped.append(tap.tap("conv6_1", o)) or tapped[-1])
+        kernels.reset_launch_counts()
+        flow6 = net(torch.from_numpy(xs).to(dev), True)[4]
+        loss = (flow6 * torch.from_numpy(w6).to(dev)).sum()
+        (direct,) = torch.autograd.grad(loss, tapped[0], retain_graph=True)
+        loss.backward()
+        hook.remove()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            check(dict(kernels.launch_counts) == {"correlation": 1, "correlation_bwd": 1},
+                  f"GradTaps launches {dict(kernels.launch_counts)}")
+            launches["correlation"] += 1
+            launches["correlation_bwd"] += 1
+        check(np.array_equal(tap.grads["conv6_1"], direct.cpu().numpy()),
+              f"{dev}: the tap's gradient against autograd's")
+        taps[dev] = tap.grads["conv6_1"]
+        del net, tapped, direct
+    rel = rel_diff(taps["cuda"], taps["cpu"])
+    print(f"tooling: (f) GradTaps on FlowNetC's conv6_1 {taps['cpu'].shape}: equal to "
+          f"autograd's gradient on each device; card vs CPU max |diff| / max |grad| "
+          f"{rel:.3e} (bound {TAP_REL_TOL})", flush=True)
+    check(rel <= TAP_REL_TOL, f"GradTaps card vs CPU {rel}")
+    shutil.rmtree(TL_BASE, ignore_errors=True)
+    return {"launches": launches, "fwd_err": fwd_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -3320,20 +3692,28 @@ def main() -> int:
 
     # -- grid phase: the 2x2 model grid, folded, and the interop ------------
     grid_phase()
-    phase_done("grid", t_phase)
+    t_phase = phase_done("grid", t_phase)
+
+    # -- tooling phase: the decoder, avenue through the CLI, visualize, the
+    # layer profiler, the with_bn nets, GradTaps ----------------------------
+    tl = tooling_phase()
+    phase_done("tooling", t_phase)
 
     rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"],
-                               calc["fwd_err"], surf["fwd_err"], fg["fwd_err"]))
+                               calc["fwd_err"], surf["fwd_err"], fg["fwd_err"],
+                               tl["fwd_err"]))
     rec_bwd.update(max_abs_err=max(rec_bwd["max_abs_err"], train["bwd_err"]))
+    tl_k1, tl_k2 = tl["launches"]["correlation"], tl["launches"]["correlation_bwd"]
     k1 = (launches.get("correlation", 0) + train["launches"]["correlation"]
           + ft_launches["correlation"] + calc["launches"] + ts_launches
-          + surf_launches + fg["launches"])
-    k2 = train["launches"]["correlation_bwd"] + ft_launches["correlation_bwd"]
+          + surf_launches + fg["launches"] + tl_k1)
+    k2 = train["launches"]["correlation_bwd"] + ft_launches["correlation_bwd"] + tl_k2
     print(f"launches on the main paths: K1 {k1} (serving {launches.get('correlation', 0)}, "
           f"FlowNetC training {train['launches']['correlation']}, FlowNet2 steps "
           f"{ft_launches['correlation']}, calc-flow {calc['launches']}, two-stream "
           f"calc-flow {ts_launches}, serving surface {surf_launches}, foreground "
-          f"{fg['launches']}, detector 0, model grid 0); K2 {k2}")
+          f"{fg['launches']}, detector 0, model grid 0, tooling {tl_k1}); K2 {k2} "
+          f"(tooling {tl_k2})")
     # no single PyTorch call computes the cost volume or its gradients
     record = {"kernels": [
         {"name": "correlation_fwd", "route": "cuda",

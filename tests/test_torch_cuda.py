@@ -769,3 +769,97 @@ def test_export_import_round_trip_on_card(cuda, tmp_path):
                     np.ones(raw.shape[0], np.int64))
     a, b = score_cubes(model, cubes, device=cuda), score_cubes(back, cubes, device=cuda)
     assert np.abs(a - b).max() <= 1e-6 * np.abs(a).max()
+
+
+@pytest.mark.cuda
+def test_native_decoder_on_the_card_machine(cuda, tmp_path):
+    """The frame decoder where the card is: with libjpeg/libpng/libtiff
+    present it decodes the committed fixtures to cv2's arrays
+    (decoded.npz); without them its build fails, and make_frame_stack
+    raises with the compiler's log rather than fall back to anything."""
+    from pathlib import Path
+
+    from vec_vad_torch.data.video_index import VideoIndex
+    from vec_vad_torch.runtime import native_loader as nl
+
+    fixtures = Path(__file__).resolve().parent / "data" / "frames"
+    paths = sorted(str(p) for p in fixtures.iterdir() if p.suffix in (".jpg", ".png", ".tif"))
+    stored = np.load(fixtures / "decoded.npz")
+    try:
+        nl.build_native()
+    except nl.NativeBuildError as e:
+        assert any(h in str(e) for h in ("jpeglib.h", "png.h", "tiffio.h", "libjpeg",
+                                         "libpng", "libtiff")), str(e)[-2000:]
+        with pytest.raises(nl.NativeBuildError):
+            nl.make_frame_stack(VideoIndex(["v"], [1], paths[:1]))
+        return
+    for p in paths:
+        want = stored[Path(p).name]
+        got = nl.NativePool(4).decode_batch([p], *want.shape[:2])[0]
+        np.testing.assert_array_equal(got, want, err_msg=p)
+
+
+def _random_bn_stats_(net, seed):
+    """Seeded BatchNorm affine and running statistics for a with_bn net."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for _, m in sorted(net.named_modules(), key=lambda kv: kv[0]):
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                for t, v in ((m.weight, rng.uniform(0.5, 1.5, n)), (m.bias, rng.normal(0, 0.1, n)),
+                             (m.running_mean, rng.normal(0, 0.5, n)),
+                             (m.running_var, rng.uniform(0.5, 2.0, n))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+    return net
+
+
+@pytest.mark.cuda
+def test_with_bn_flownetc_on_card_matches_cpu(cuda, full_f32):
+    """A seeded FlowNetC(with_bn=True) on the card (K1, once a forward) and
+    on the CPU: eval-mode flow within 1e-4 of its largest |value|, one
+    train-mode forward's flow within 1e-4 and its updated running
+    statistics within 1e-5 of each tensor's largest."""
+    from vec_vad_torch.models.flownet import init_flownet_
+    from vec_vad_torch.models.flownet.nets import FlowNetC
+
+    x = np.random.default_rng(12).normal(size=(4, 128, 128, 6)).astype(np.float32)
+    nets, outs = {}, {}
+    for dev in ("cpu", "cuda"):
+        net = _random_bn_stats_(init_flownet_(FlowNetC(True, device=dev), 4), 5)
+        xt = torch.from_numpy(x).to(dev)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            outs[dev] = [net(xt, False)[0].cpu(), net(xt, True)[0].cpu()]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts["correlation"] == 2
+        nets[dev] = net
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    sd_c, sd_g = nets["cpu"].state_dict(), nets["cuda"].state_dict()
+    for k in sd_c:
+        if "running" in k:
+            want, got = sd_c[k], sd_g[k].cpu()
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), k
+
+
+@pytest.mark.cuda
+def test_layer_profiler_on_card(cuda):
+    """The layer profiler's probes on the card at small sizes: positive
+    times from CUDA events, TF32 left as the caller had it, and the
+    ensemble layouts computing the same convolutions."""
+    from vec_vad_torch.runtime import layer_profile as lp
+
+    prev = torch.backends.cudnn.allow_tf32
+    table = lp.profile_unet_convs(batch=8, iters=2, shapes=lp.UNET_CONV_SHAPES[:2],
+                                  device=cuda)
+    assert all(ms > 0 for row in table.values() for ms, _ in row.values())
+    assert torch.backends.cudnn.allow_tf32 == prev
+    res = lp.profile_ensemble_formulations(batch=8, iters=2, device=cuda)
+    assert set(res) == {"vmap", "grouped", "blockdiag", "sharedw_batch"}
+    out = lp.ensemble_formulation_outputs(batch=8, device=cuda)
+    ref = out["vmap"]
+    for name in ("grouped", "blockdiag"):
+        assert float((out[name] - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    prog = lp.profile_completion_program(batches=(8,), mode="fwd", iters=2, device=cuda)
+    assert set(prog) == {"fwd_b8_float32", "fwd_b8_bfloat16"}

@@ -44,7 +44,9 @@ def _port_modules():
 def test_every_module_imports_with_jax_blocked():
     mods = ["vec_vad_torch"] + _port_modules()
     assert "vec_vad_torch.serve.live_flow" in mods
-    for m in ("train.trainer", "infer", "eval.metrics", "fore.detector", "runner"):
+    for m in ("train.trainer", "infer", "eval.metrics", "fore.detector", "runner",
+              "runtime.native_loader", "runtime.layer_profile", "utils.png",
+              "utils.visualize", "utils.flowviz", "utils.gradtap", "utils.meters"):
         assert f"vec_vad_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -139,6 +141,48 @@ def test_grid_and_interop_entry_points_need_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         export_model_grid(model, str(tmp_path / "out"))
     assert len(export_model_grid(model, str(tmp_path / "out"), device="cpu")) == 3
+
+
+def test_tooling_entry_points_need_a_card(monkeypatch):
+    """The layer profiler's probes and warp_image_np run on the card by
+    default and raise without one; device='cpu' runs."""
+    from vec_vad_torch.runtime import layer_profile as lp
+    from vec_vad_torch.utils.flowviz import warp_image_np
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img, flow = np.zeros((4, 5, 3)), np.zeros((4, 5, 2))
+    calls = [
+        lambda **k: lp.profile_unet_convs(batch=1, iters=1, shapes=[("t", 4, 3, 4)], **k),
+        lambda **k: lp.profile_ensemble_formulations(batch=1, members=2, H=4, C=4,
+                                                     iters=1, **k),
+        lambda **k: lp.ensemble_formulation_outputs(batch=1, members=2, H=4, C=4, **k),
+        lambda **k: lp.profile_completion_program(batches=(1,), dtypes=(torch.float32,),
+                                                  mode="fwd", iters=1, **k),
+        lambda **k: warp_image_np(img, flow, **k),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    np.testing.assert_array_equal(warp_image_np(img, flow, device="cpu"), img)
+    assert set(lp.ensemble_formulation_outputs(batch=1, members=2, H=4, C=4,
+                                               device="cpu")) == {
+        "vmap", "grouped", "blockdiag", "sharedw_batch"}
+
+
+def test_decoder_is_the_ports_own():
+    """The frame decoder builds from vec_vad_torch/csrc/vadio.cpp into the
+    ignored build directory, named by its content; no source of the port
+    loads the JAX package's native/libvadio.so."""
+    from vec_vad_torch.runtime import native_loader as nl
+
+    assert nl.SOURCE == PKG / "csrc" / "vadio.cpp"
+    path = nl.lib_path()
+    assert path.parent == ROOT / "build" / "kernels"
+    assert path.name.startswith("libvadio-") and path.suffix == ".so"
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [str(f) for f in files if "libvadio.so" in f.read_text()
+           or re.search(r"[\"'/]native[\"'/]", f.read_text())]
+    assert not bad, bad
 
 
 def test_correlation_wrapper_routes_by_device():
@@ -241,6 +285,14 @@ def test_host_copies_match_jax_package():
     ("runtime.profiling", ["StageTimer"]),
     ("models.completion_convert", ["_strip_module"]),
     ("train.grid_trainer", ["GridTrainer._uniform_has_flow"]),
+    ("utils.meters", ["AverageMeter"]),
+    ("utils.visualize", ["visualize_score", "tile_batch", "visualize_pair_map"]),
+    ("utils.flowviz", ["UNKNOWN_FLOW_THRESH", "SMALL_FLOW", "LARGE_FLOW", "TAG_FLOAT",
+                       "make_color_wheel", "compute_color", "flow_to_image", "read_flo",
+                       "disp_to_flowfile", "segment_flow", "_hsv_to_rgb", "render_flow",
+                       "visualize_flow", "show_flow", "scale_image", "flow_error"]),
+    ("runtime.layer_profile", ["UNET_CONV_SHAPES", "FLAGSHIP_PER_CUBE_FWD_FLOPS",
+                               "format_table"]),
 ])
 def test_copied_host_functions_equal_jax_package(module, names):
     """The host (NumPy) functions the main path copies are the JAX

@@ -36,7 +36,12 @@ Ported so far:
     infer.infer_frame_scores_grid; BlockTrainer.fit_block_budget, the demo
     (`python -m vec_vad_torch demo`, vec_vad_torch.demo), and the
     reference's model_set in and out (models.completion_convert /
-    completion_export, the import-torch / export-torch CLI).
+    completion_export, the import-torch / export-torch CLI);
+  * the tooling — the native frame decoder for .jpg/.png/.tif trees
+    (runtime.native_loader over csrc/vadio.cpp, built by g++),
+    utils.visualize / flowviz / png / gradtap / meters and the visualize
+    and extract-frames CLI, the layer profiler (runtime.layer_profile),
+    and the FlowNet family with with_bn=True.
 The FlowNetC correlation is differentiable and runs as hand-written CUDA
 kernels on the card: csrc/correlation.cu forward, csrc/correlation_bwd.cu
 backward.

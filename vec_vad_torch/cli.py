@@ -1,8 +1,8 @@
 """The port's command line (vec_vad_tpu/cli.py): `train`, `test`,
 `calc-flow`, `precompute-boxes`, `serve`, `flow-train`, `flow-infer`,
-`demo`, `export-torch` and `import-torch`, with vec_vad_tpu's flags and
-messages plus `--device` (the card by default; `--device cpu` runs the
-plain PyTorch path).
+`demo`, `export-torch`, `import-torch`, `visualize` and `extract-frames`,
+with vec_vad_tpu's flags and messages plus `--device` (the card by
+default; `--device cpu` runs the plain PyTorch path).
 
     python -m vec_vad_torch train --config config.cfg --base .
     python -m vec_vad_torch test --config config.cfg --base .
@@ -15,6 +15,9 @@ plain PyTorch path).
     python -m vec_vad_torch demo
     python -m vec_vad_torch export-torch --config config.cfg [--out DIR]
     python -m vec_vad_torch import-torch --config config.cfg --model-dir DIR
+    python -m vec_vad_torch visualize --masks score_masks.npy \\
+        [--config config.cfg | --frames-root DIR] [--flow-dir TREE] --out DIR
+    python -m vec_vad_torch extract-frames --video V.avi --out DIR
 
 With `useFlow = True` in the config and the tree calc-flow wrote, train
 and test run the two-stream model. `--resident` extracts a split on the
@@ -32,15 +35,22 @@ together (train.grid_trainer). `demo` runs train and test on a synthetic
 tree (vec_vad_torch.demo); `export-torch` writes the trained grid as the
 reference's model_set and training-score files, `import-torch` reads them
 (e.g. its released checkpoints) into the .npz model `test` loads.
+`visualize` writes score masks, overlays and flow wheels as PNGs without
+cv2, pairing the masks with the dataset's test split (`--config`) or
+with `--frames-root` in natural order; `extract-frames` needs cv2 (its
+video decoder), which the card's machine lacks. Frames of .jpg/.png/.tif
+trees are read by the native decoder (runtime/native_loader.py).
 calc-flow has no `--no-mesh`: the JAX package's data-parallel mesh is not
-ported. The other subcommands of vec_vad_tpu are not ported yet
-(ROADMAP.md).
+ported, nor is `bench` (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import os
+import re
+import sys
 
 from vec_vad_torch.config import PipelineConfig, load_ini_config
 
@@ -580,6 +590,137 @@ def cmd_import_torch(args) -> int:
     return 0
 
 
+def _natural_key(path: str):
+    """Sort key that orders embedded numbers by value (frame 10 after 9)."""
+    return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", path)]
+
+
+def _visualize_frames(args):
+    """The frames the score masks were computed on, or None: the
+    dataset's test split through make_frame_stack when --config is given,
+    else the images under --frames-root in natural order."""
+    from vec_vad_torch.data.video_index import VideoIndex
+    from vec_vad_torch.runtime.native_loader import make_frame_stack
+
+    if args.config:
+        if args.frames_root:
+            raise SystemExit("pass --config or --frames-root, not both")
+        cfg = _load_cfg(args)
+        root = os.path.join(args.base, cfg.raw_dataset_dir, cfg.dataset_name)
+        index = VideoIndex.from_layout(cfg.dataset_name, root, "test",
+                                       cfg.dataset.file_ext)
+        if index.total_frames == 0:
+            raise FileNotFoundError(f"no test frames under {root}")
+        return make_frame_stack(index)
+    if not args.frames_root:
+        return None
+    paths = []
+    for pat in ("*.jpg", "*.jpeg", "*.png", "*.bmp", "*.tif", "*.tiff", "*.npy"):
+        paths += glob.glob(os.path.join(args.frames_root, "**", pat), recursive=True)
+    if not paths:
+        raise FileNotFoundError(f"--frames-root {args.frames_root}: no images found")
+    paths.sort(key=_natural_key)
+    return make_frame_stack(VideoIndex(["frames"], [len(paths)], paths))
+
+
+def cmd_visualize(args) -> int:
+    """Render persisted artifacts to PNGs: per-frame anomaly-score masks
+    (grayscale, and a JET overlay on the frame when the frames are given)
+    and optical-flow color wheels (vec_vad_tpu/cli.py:385-460).
+
+    The artifacts are `test --save-masks`'s score_masks.npy and
+    `calc-flow`'s .npy/.flo trees. Images are written by utils/png.py (no
+    cv2). The frames pair with the masks in the order `test` scored them:
+    the dataset's test split (--config), or --frames-root in natural
+    order; a frame count other than the masks' is refused."""
+    import numpy as np
+
+    from vec_vad_torch.utils.flowviz import flow_to_image, read_flo
+    from vec_vad_torch.utils.png import write_png
+    from vec_vad_torch.utils.visualize import score_mask_overlay, visualize_score
+
+    if not (args.masks or args.flow_dir):
+        print("nothing to do: pass --masks and/or --flow-dir", file=sys.stderr)
+        return 2
+    os.makedirs(args.out, exist_ok=True)
+    wrote = 0
+    if args.masks:
+        masks = np.load(args.masks)
+        if masks.ndim != 3:
+            raise ValueError(
+                f"--masks expects (N, H, W) score_masks.npy, got {masks.shape}"
+            )
+        frames = _visualize_frames(args)
+        if frames is not None and len(frames) != masks.shape[0]:
+            raise ValueError(
+                f"{len(frames)} frames for {masks.shape[0]} score masks: the "
+                "frames must be the ones `test` scored"
+            )
+        n = masks.shape[0] if args.limit is None else min(
+            masks.shape[0], args.limit
+        )
+        for i in range(n):
+            write_png(os.path.join(args.out, f"score_{i:06d}.png"),
+                      visualize_score(masks[i]))
+            wrote += 1
+            if frames is not None:
+                write_png(
+                    os.path.join(args.out, f"overlay_{i:06d}.png"),
+                    score_mask_overlay(frames[i], masks[i], alpha=args.alpha),
+                )
+                wrote += 1
+    if args.flow_dir:
+        paths = sorted(
+            glob.glob(os.path.join(args.flow_dir, "**", "*.npy"), recursive=True)
+            + glob.glob(os.path.join(args.flow_dir, "**", "*.flo"), recursive=True)
+        )
+        if args.limit is not None:
+            paths = paths[: args.limit]
+        if not paths:
+            raise FileNotFoundError(f"--flow-dir {args.flow_dir}: no .npy/.flo")
+        for p in paths:
+            flow = read_flo(p) if p.endswith(".flo") else np.load(p)
+            rel = os.path.relpath(p, args.flow_dir)
+            out = os.path.join(
+                args.out, "flow_" + rel.replace(os.sep, "_") + ".png"
+            )
+            # flow_to_image returns RGB (flowlib convention); PNGs take BGR
+            write_png(out, flow_to_image(flow)[:, :, ::-1])
+            wrote += 1
+    print(f"wrote {wrote} image(s) -> {args.out}")
+    return 0
+
+
+def cmd_extract_frames(args) -> int:
+    """Video file -> %06d.jpg frames (raw_datasets/ShanghaiTech/
+    extract_frames.py equivalent), through cv2's video decoder and JPEG
+    encoder as in the JAX package."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            "extract-frames needs cv2 for its video decoder and JPEG encoder; "
+            "this machine has no cv2 (the card's machine has none): extract "
+            "the frames where cv2 is installed"
+        ) from e
+
+    os.makedirs(args.out, exist_ok=True)
+    cap = cv2.VideoCapture(args.video)
+    if not cap.isOpened():
+        print(f"cannot open {args.video}", file=sys.stderr)
+        return 1
+    i = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        i += 1
+        cv2.imwrite(os.path.join(args.out, f"{i:06d}.jpg"), frame)
+    cap.release()
+    print(f"extracted {i} frames to {args.out}")
+    return 0
+
+
 def _add_device(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -808,6 +949,45 @@ def main(argv=None) -> int:
     )
     _add_device(p)
     p.set_defaults(fn=cmd_import_torch)
+
+    p = sub.add_parser(
+        "visualize",
+        help="render score masks / flow maps to images "
+        "(test --save-masks + calc-flow artifacts)",
+    )
+    p.add_argument(
+        "--masks", default=None,
+        help="score_masks.npy from `test --save-masks` -> per-frame "
+        "grayscale score_%%06d.png",
+    )
+    p.add_argument(
+        "--frames-root", default=None,
+        help="image tree matched 1:1 (natural order) with --masks frames -> "
+        "JET overlay_%%06d.png",
+    )
+    p.add_argument(
+        "--config", default=None,
+        help="INI config: overlay on its dataset's test split instead "
+        "(read through the native decoder)",
+    )
+    p.add_argument("--base", default=".", help="base dir holding raw_datasets/")
+    p.add_argument("--dataset", default=None, help="override dataset_name")
+    p.add_argument(
+        "--flow-dir", default=None,
+        help="tree of .npy/.flo flow maps -> Middlebury color-wheel pngs",
+    )
+    p.add_argument("--out", required=True, help="output image directory")
+    p.add_argument("--limit", type=int, default=None, help="cap frames/maps")
+    p.add_argument(
+        "--alpha", type=float, default=0.5,
+        help="overlay heatmap opacity on scored pixels",
+    )
+    p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("extract-frames", help="video file -> frame images (cv2)")
+    p.add_argument("--video", required=True)
+    p.add_argument("--out", required=True)
+    p.set_defaults(fn=cmd_extract_frames)
 
     args = ap.parse_args(argv)
     return args.fn(args)

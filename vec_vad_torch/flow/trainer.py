@@ -4,7 +4,9 @@ Capability parity with the flownet2-pytorch trainer (FlowNet2_src/main.py):
 train any FlowNet2-family net on (image-pair, flow) batches with the
 multi-scale loss (component nets) or the single-scale L1/L2 loss on the
 fused flow (composites), Adam, and the stepped LR schedule. One device:
-there is no padding to a mesh, so no sample weights.
+there is no padding to a mesh, so no sample weights. Nets without
+BatchNorm only: a with_bn net is refused, since the JAX package's trainer
+cannot train one either.
 
 Where JAX threads a functional train state through a jitted step, the
 trainer here holds it: the net's parameters, a torch.optim.Adam and the
@@ -69,6 +71,13 @@ class FlowTrainer:
         caller asks for the CPU)."""
         if loss not in ("multiscale", "single"):
             raise ValueError(f"loss must be 'multiscale' or 'single', got {loss!r}")
+        if any(isinstance(m, nn.BatchNorm2d) for m in net.modules()):
+            raise NotImplementedError(
+                "FlowTrainer does not train with_bn nets: vec_vad_tpu's "
+                "FlowTrainer applies {'params'} alone (flow/trainer.py:92-110), "
+                "so a with_bn net fails there with no batch_stats; neither "
+                "package trains one (ROADMAP.md Queue 1 item 5)"
+            )
         self.device = resolve_device(device)
         self.net = net.to(self.device)
         self.loss_mode = loss

@@ -144,10 +144,23 @@ def completion_to_jax(state_dict: Dict[str, torch.Tensor]):
 
 def flownet2_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict for models.flownet.FlowNet2 (or any of its component
-    nets, given that net's own variables)."""
+    nets, given that net's own variables). A with_bn net's BatchNorms take
+    params/.../bn/{scale, bias} and batch_stats/.../bn/{mean, var}; their
+    num_batches_tracked is 0 (the JAX package counts no batches)."""
     sd = {}
 
     def visit(tree, path):
+        if path and path[-1] == "bn":
+            name = ".".join(path)
+            sd[f"{name}.weight"] = _t(tree["scale"])
+            sd[f"{name}.bias"] = _t(tree["bias"])
+            stats = variables["batch_stats"]
+            for key in path:
+                stats = stats[key]
+            sd[f"{name}.running_mean"] = _t(stats["mean"])
+            sd[f"{name}.running_var"] = _t(stats["var"])
+            sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+            return
         if "kernel" in tree:
             transposed = path[-1].startswith("upsampled_flow") or (
                 path[-1] == "conv" and path[-2].startswith("deconv")

@@ -8,13 +8,17 @@ only where a conv block wraps its convolution in an nn.Sequential:
   reference key                      port key
   <m>.<conv>.0.{weight,bias}         <m>.<conv>.conv.{weight,bias}
   <m>.deconv*.0.{weight,bias}        <m>.deconv*.conv.{weight,bias}
+  <m>.<conv>.1.{weight,bias,         <m>.<conv>.bn.{weight,bias,
+    running_mean,running_var}          running_mean,running_var}
   <m>.predict_flow*.{weight,bias}    the same
   <m>.upsampled_flow*.{weight,bias}  the same
 
 The tensor layouts are torch's on both sides (OIHW convolutions, IOHW
 transposed convolutions), so values copy as they are. BatchNorm entries
-(<m>.<conv>.1.*) have no counterpart in the with_bn=False nets and are
-ignored, as vec_vad_tpu's converter ignores them for those nets.
+(<m>.<conv>.1.*) load into with_bn nets and are ignored by the
+with_bn=False nets, as in vec_vad_tpu's converter. A BatchNorm's
+num_batches_tracked is neither read nor written: the reference's files
+predate it, and at momentum 0.1 it changes no output.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ def reference_key(port_key: str) -> str:
     head, _, leaf = port_key.rpartition(".")
     if head.endswith(".conv"):
         head = head[: -len(".conv")] + ".0"
+    elif head.endswith(".bn"):
+        head = head[: -len(".bn")] + ".1"
     return f"{head}.{leaf}"
 
 
@@ -48,6 +54,8 @@ def load_flownet_checkpoint(net: nn.Module, path: str) -> Dict[str, List[str]]:
     matched, missing = [], []
     with torch.no_grad():
         for key, param in net.state_dict().items():
+            if key.endswith(".num_batches_tracked"):
+                continue
             ref = reference_key(key)
             if ref not in sd:
                 if key.endswith(".weight"):

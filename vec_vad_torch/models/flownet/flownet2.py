@@ -14,6 +14,8 @@ Input (B, 2, H, W, 3) frame-major NHWC; output (B, H, W, 2). The single-net
 wrappers FlowNet2C/2S/2SD return their net's pyramid when `train` and the
 full-res flow upsample_bilinear(flow2 * div_flow, 4) otherwise; the
 composites FlowNet2/2CS/2CSS return the full-res flow under both flags.
+`with_bn` builds every component net with BatchNorm, whose batch
+statistics `train` selects (models/flownet/nets.py).
 """
 
 from __future__ import annotations
@@ -47,18 +49,20 @@ def _normalize(inputs: torch.Tensor, rgb_max: float) -> torch.Tensor:
 
 class _Composite(nn.Module):
     """Shared settings of the FlowNet2 family; `nets` maps submodule
-    names to constructors taking the device. Convolution weights are
-    channels_last, like the NHWC activations."""
+    names to constructors taking (with_bn, device). Convolution weights
+    are channels_last, like the NHWC activations."""
 
-    def __init__(self, nets, rgb_max: float = 255.0, div_flow: float = 20.0,
-                 align_corners: bool = True, device="cuda"):
+    def __init__(self, nets, with_bn: bool = False, rgb_max: float = 255.0,
+                 div_flow: float = 20.0, align_corners: bool = True,
+                 device="cuda"):
         super().__init__()
         dev = resolve_device(device)
+        self.with_bn = with_bn
         self.rgb_max = rgb_max
         self.div_flow = div_flow
         self.align_corners = align_corners
         for name, make in nets.items():
-            setattr(self, name, make(dev))
+            setattr(self, name, make(with_bn, dev))
         self.to(memory_format=torch.channels_last)
 
     def _refine(self, x, net_input, net, train):
@@ -85,8 +89,8 @@ class FlowNet2(_Composite):
     def __init__(self, **kw):
         super().__init__({
             "flownetc": FlowNetC,
-            "flownets_1": lambda d: FlowNetS(12, d),
-            "flownets_2": lambda d: FlowNetS(12, d),
+            "flownets_1": lambda bn, d: FlowNetS(12, bn, d),
+            "flownets_2": lambda bn, d: FlowNetS(12, bn, d),
             "flownets_d": FlowNetSD,
             "flownetfusion": FlowNetFusion,
         }, **kw)
@@ -128,7 +132,7 @@ class FlowNet2C(_Composite):
 
 class FlowNet2S(_Composite):
     def __init__(self, **kw):
-        super().__init__({"flownets": lambda d: FlowNetS(6, d)}, **kw)
+        super().__init__({"flownets": lambda bn, d: FlowNetS(6, bn, d)}, **kw)
 
     def forward(self, inputs, train: bool = False):
         return self._wrapper(self.flownets, inputs, train)
@@ -146,7 +150,7 @@ class FlowNet2CS(_Composite):
     def __init__(self, **kw):
         super().__init__({
             "flownetc": FlowNetC,
-            "flownets_1": lambda d: FlowNetS(12, d),
+            "flownets_1": lambda bn, d: FlowNetS(12, bn, d),
         }, **kw)
 
     def forward(self, inputs, train: bool = False):
@@ -162,8 +166,8 @@ class FlowNet2CSS(_Composite):
     def __init__(self, **kw):
         super().__init__({
             "flownetc": FlowNetC,
-            "flownets_1": lambda d: FlowNetS(12, d),
-            "flownets_2": lambda d: FlowNetS(12, d),
+            "flownets_1": lambda bn, d: FlowNetS(12, bn, d),
+            "flownets_2": lambda bn, d: FlowNetS(12, bn, d),
         }, **kw)
 
     def forward(self, inputs, train: bool = False):

@@ -3,13 +3,14 @@
 
 Architectures match the reference — FlowNetC (components/FlowNetC.py:10-132),
 FlowNetS (FlowNetS.py:11-96), FlowNetSD (FlowNetSD.py:9-103), FlowNetFusion
-(FlowNetFusion.py:9-64) — at with_bn=False, the configuration FlowNet2
-serves with. Submodule names equal the JAX package's (and so the torch
-checkpoint's) so weight carry-over is a mechanical relayout
-(models/convert.py).
+(FlowNetFusion.py:9-64) — with or without BatchNorm (`with_bn`; FlowNet2
+serves with_bn=False, as do the CLI and the released checkpoints).
+Submodule names equal the JAX package's (and so the torch checkpoint's)
+so weight carry-over is a mechanical relayout (models/convert.py).
 
-Blocks (components/misc.py:8-44): conv = Conv2d(pad (k-1)//2) +
-LeakyReLU(0.1); deconv = ConvTranspose2d(k4, s2, p1) + LeakyReLU;
+Blocks (components/misc.py:8-44): conv = Conv2d(pad (k-1)//2) [+
+BatchNorm2d(eps 1e-5, momentum 0.1)] + LeakyReLU(0.1); deconv =
+ConvTranspose2d(k4, s2, p1) + LeakyReLU;
 predict_flow = 3x3 conv -> 2ch. `init_flownet_` draws the reference's
 init from a numpy seed: xavier_uniform weights, U(0, 1) biases
 (FlowNetC.py:64-73).
@@ -20,8 +21,11 @@ channels_last in memory (no copy on the PyTorch side; cuDNN may still
 transpose internally for the f32 kernel it picks).
 
 All nets return the 5-scale flow pyramid (flow2..flow6; Fusion returns
-flow0) under both values of `train`: without BatchNorm the flag changes
-nothing, and it is taken so the nets are called as the JAX package's are.
+flow0) under both values of `train`. With BatchNorm, `train` normalizes
+by the batch's statistics and updates the running ones (unbiased
+variance, as torch and the JAX package's BatchNorm do); otherwise it
+uses the running statistics. Without BatchNorm the flag changes
+nothing.
 Gradients flow through every net; FlowNetC's cost volume is differentiable
 (`ops.correlation`, K1 forward and K2 backward on the card).
 """
@@ -90,16 +94,29 @@ class TorchConvT4x2(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """conv + LeakyReLU(0.1) (components/misc.py:8-28, batchNorm=False)."""
+    """conv (+ BatchNorm) + LeakyReLU(0.1) (components/misc.py:8-28)."""
 
     def __init__(self, in_ch, features, kernel_size=3, stride=1,
-                 with_relu=True, device="cuda"):
+                 with_bn=False, with_relu=True, device="cuda"):
         super().__init__()
         self.conv = TorchConv(in_ch, features, kernel_size, stride, device=device)
+        self.bn = (
+            nn.BatchNorm2d(features, eps=1e-5, momentum=0.1,
+                           device=resolve_device(device))
+            if with_bn else None
+        )
         self.with_relu = with_relu
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = self.conv(x)
+        if self.bn is not None:
+            bn = self.bn
+            if train:
+                bn.num_batches_tracked.add_(1)
+            x = _nhwc(F.batch_norm(
+                _nchw(x), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                train, bn.momentum, bn.eps,
+            ))
         return _leaky(x) if self.with_relu else x
 
 
@@ -131,12 +148,12 @@ class _Pyramid(nn.Module):
                 TorchConvT4x2(2, 2, use_bias=up_bias, device=device),
             )
 
-    def _decode(self, c6, c5, c4, c3, c2, inter=None):
+    def _decode(self, c6, c5, c4, c3, c2, inter=None, train=False):
         inter = inter or {}
 
         def head(i, x):
             if i in inter:
-                x = inter[i](x)
+                x = inter[i](x, train)
             return getattr(self, f"predict_flow{i}")(x)
 
         flow6 = self.predict_flow6(c6)
@@ -155,125 +172,123 @@ class FlowNetC(_Pyramid):
     """x: (B, H, W, 6) — [img0, img1] channel-concat. The cost volume runs
     through `correlation`: the CUDA kernel on the card."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, with_bn=False, device="cuda"):
         super().__init__()
-        d = device
-        self.conv1 = ConvBlock(3, 64, 7, 2, device=d)
-        self.conv2 = ConvBlock(64, 128, 5, 2, device=d)
-        self.conv3 = ConvBlock(128, 256, 5, 2, device=d)
-        self.conv_redir = ConvBlock(256, 32, 1, 1, device=d)
-        self.conv3_1 = ConvBlock(32 + 441, 256, 3, 1, device=d)
-        self.conv4 = ConvBlock(256, 512, 3, 2, device=d)
-        self.conv4_1 = ConvBlock(512, 512, 3, 1, device=d)
-        self.conv5 = ConvBlock(512, 512, 3, 2, device=d)
-        self.conv5_1 = ConvBlock(512, 512, 3, 1, device=d)
-        self.conv6 = ConvBlock(512, 1024, 3, 2, device=d)
-        self.conv6_1 = ConvBlock(1024, 1024, 3, 1, device=d)
+        d, bn = device, with_bn
+        self.conv1 = ConvBlock(3, 64, 7, 2, bn, device=d)
+        self.conv2 = ConvBlock(64, 128, 5, 2, bn, device=d)
+        self.conv3 = ConvBlock(128, 256, 5, 2, bn, device=d)
+        self.conv_redir = ConvBlock(256, 32, 1, 1, bn, device=d)
+        self.conv3_1 = ConvBlock(32 + 441, 256, 3, 1, bn, device=d)
+        self.conv4 = ConvBlock(256, 512, 3, 2, bn, device=d)
+        self.conv4_1 = ConvBlock(512, 512, 3, 1, bn, device=d)
+        self.conv5 = ConvBlock(512, 512, 3, 2, bn, device=d)
+        self.conv5_1 = ConvBlock(512, 512, 3, 1, bn, device=d)
+        self.conv6 = ConvBlock(512, 1024, 3, 2, bn, device=d)
+        self.conv6_1 = ConvBlock(1024, 1024, 3, 1, bn, device=d)
         c5, c4, c3 = 512 + 512 + 2, 512 + 256 + 2, 256 + 128 + 2
         self._decoder(d, 1024, 512, 512, 256, 128, True,
                       (1024, c5, c4, c3, 128 + 64 + 2))
 
     def forward(self, x, train: bool = False):
         x1, x2 = x[..., :3], x[..., 3:]
-        c1a = self.conv1(x1)
-        c2a = self.conv2(c1a)
-        c3a = self.conv3(c2a)
-        c1b = self.conv1(x2)
-        c2b = self.conv2(c1b)
-        c3b = self.conv3(c2b)
+        c1a = self.conv1(x1, train)
+        c2a = self.conv2(c1a, train)
+        c3a = self.conv3(c2a, train)
+        c1b = self.conv1(x2, train)
+        c2b = self.conv2(c1b, train)
+        c3b = self.conv3(c2b, train)
 
         corr = _leaky(correlation(c3a.contiguous(), c3b.contiguous(), 20, 2))
-        redir = self.conv_redir(c3a)
+        redir = self.conv_redir(c3a, train)
 
-        c3_1 = self.conv3_1(_cat(redir, corr))
-        c4 = self.conv4_1(self.conv4(c3_1))
-        c5 = self.conv5_1(self.conv5(c4))
-        c6 = self.conv6_1(self.conv6(c5))
+        c3_1 = self.conv3_1(_cat(redir, corr), train)
+        c4 = self.conv4_1(self.conv4(c3_1, train), train)
+        c5 = self.conv5_1(self.conv5(c4, train), train)
+        c6 = self.conv6_1(self.conv6(c5, train), train)
         return self._decode(c6, c5, c4, c3_1, c2a)
 
 
 class FlowNetS(_Pyramid):
-    def __init__(self, input_channels=12, device="cuda"):
+    def __init__(self, input_channels=12, with_bn=False, device="cuda"):
         super().__init__()
-        d = device
-        self.conv1 = ConvBlock(input_channels, 64, 7, 2, device=d)
-        self.conv2 = ConvBlock(64, 128, 5, 2, device=d)
-        self.conv3 = ConvBlock(128, 256, 5, 2, device=d)
-        self.conv3_1 = ConvBlock(256, 256, 3, 1, device=d)
-        self.conv4 = ConvBlock(256, 512, 3, 2, device=d)
-        self.conv4_1 = ConvBlock(512, 512, 3, 1, device=d)
-        self.conv5 = ConvBlock(512, 512, 3, 2, device=d)
-        self.conv5_1 = ConvBlock(512, 512, 3, 1, device=d)
-        self.conv6 = ConvBlock(512, 1024, 3, 2, device=d)
-        self.conv6_1 = ConvBlock(1024, 1024, 3, 1, device=d)
+        d, bn = device, with_bn
+        self.conv1 = ConvBlock(input_channels, 64, 7, 2, bn, device=d)
+        self.conv2 = ConvBlock(64, 128, 5, 2, bn, device=d)
+        self.conv3 = ConvBlock(128, 256, 5, 2, bn, device=d)
+        self.conv3_1 = ConvBlock(256, 256, 3, 1, bn, device=d)
+        self.conv4 = ConvBlock(256, 512, 3, 2, bn, device=d)
+        self.conv4_1 = ConvBlock(512, 512, 3, 1, bn, device=d)
+        self.conv5 = ConvBlock(512, 512, 3, 2, bn, device=d)
+        self.conv5_1 = ConvBlock(512, 512, 3, 1, bn, device=d)
+        self.conv6 = ConvBlock(512, 1024, 3, 2, bn, device=d)
+        self.conv6_1 = ConvBlock(1024, 1024, 3, 1, bn, device=d)
         c5, c4, c3 = 512 + 512 + 2, 512 + 256 + 2, 256 + 128 + 2
         self._decoder(d, 1024, 512, 512, 256, 128, False,
                       (1024, c5, c4, c3, 128 + 64 + 2))
 
     def forward(self, x, train: bool = False):
-        c1 = self.conv1(x)
-        c2 = self.conv2(c1)
-        c3 = self.conv3_1(self.conv3(c2))
-        c4 = self.conv4_1(self.conv4(c3))
-        c5 = self.conv5_1(self.conv5(c4))
-        c6 = self.conv6_1(self.conv6(c5))
+        c1 = self.conv1(x, train)
+        c2 = self.conv2(c1, train)
+        c3 = self.conv3_1(self.conv3(c2, train), train)
+        c4 = self.conv4_1(self.conv4(c3, train), train)
+        c5 = self.conv5_1(self.conv5(c4, train), train)
+        c6 = self.conv6_1(self.conv6(c5, train), train)
         return self._decode(c6, c5, c4, c3, c2)
 
 
 class FlowNetSD(_Pyramid):
-    def __init__(self, device="cuda"):
+    def __init__(self, with_bn=False, device="cuda"):
         super().__init__()
-        d = device
-        self.conv0 = ConvBlock(6, 64, 3, 1, device=d)
-        self.conv1 = ConvBlock(64, 64, 3, 2, device=d)
-        self.conv1_1 = ConvBlock(64, 128, 3, 1, device=d)
-        self.conv2 = ConvBlock(128, 128, 3, 2, device=d)
-        self.conv2_1 = ConvBlock(128, 128, 3, 1, device=d)
-        self.conv3 = ConvBlock(128, 256, 3, 2, device=d)
-        self.conv3_1 = ConvBlock(256, 256, 3, 1, device=d)
-        self.conv4 = ConvBlock(256, 512, 3, 2, device=d)
-        self.conv4_1 = ConvBlock(512, 512, 3, 1, device=d)
-        self.conv5 = ConvBlock(512, 512, 3, 2, device=d)
-        self.conv5_1 = ConvBlock(512, 512, 3, 1, device=d)
-        self.conv6 = ConvBlock(512, 1024, 3, 2, device=d)
-        self.conv6_1 = ConvBlock(1024, 1024, 3, 1, device=d)
+        d, bn = device, with_bn
+        self.conv0 = ConvBlock(6, 64, 3, 1, bn, device=d)
+        self.conv1 = ConvBlock(64, 64, 3, 2, bn, device=d)
+        self.conv1_1 = ConvBlock(64, 128, 3, 1, bn, device=d)
+        self.conv2 = ConvBlock(128, 128, 3, 2, bn, device=d)
+        self.conv2_1 = ConvBlock(128, 128, 3, 1, bn, device=d)
+        self.conv3 = ConvBlock(128, 256, 3, 2, bn, device=d)
+        self.conv3_1 = ConvBlock(256, 256, 3, 1, bn, device=d)
+        self.conv4 = ConvBlock(256, 512, 3, 2, bn, device=d)
+        self.conv4_1 = ConvBlock(512, 512, 3, 1, bn, device=d)
+        self.conv5 = ConvBlock(512, 512, 3, 2, bn, device=d)
+        self.conv5_1 = ConvBlock(512, 512, 3, 1, bn, device=d)
+        self.conv6 = ConvBlock(512, 1024, 3, 2, bn, device=d)
+        self.conv6_1 = ConvBlock(1024, 1024, 3, 1, bn, device=d)
         c5, c4, c3, c2 = (
             512 + 512 + 2, 512 + 256 + 2, 256 + 128 + 2, 128 + 64 + 2
         )
-        self.inter_conv5 = ConvBlock(c5, 512, 3, 1, with_relu=False, device=d)
-        self.inter_conv4 = ConvBlock(c4, 256, 3, 1, with_relu=False, device=d)
-        self.inter_conv3 = ConvBlock(c3, 128, 3, 1, with_relu=False, device=d)
-        self.inter_conv2 = ConvBlock(c2, 64, 3, 1, with_relu=False, device=d)
+        self.inter_conv5 = ConvBlock(c5, 512, 3, 1, bn, False, device=d)
+        self.inter_conv4 = ConvBlock(c4, 256, 3, 1, bn, False, device=d)
+        self.inter_conv3 = ConvBlock(c3, 128, 3, 1, bn, False, device=d)
+        self.inter_conv2 = ConvBlock(c2, 64, 3, 1, bn, False, device=d)
         self._decoder(d, 1024, 512, 512, 256, 128, True,
                       (1024, 512, 256, 128, 64))
 
     def forward(self, x, train: bool = False):
-        c0 = self.conv0(x)
-        c1 = self.conv1_1(self.conv1(c0))
-        c2 = self.conv2_1(self.conv2(c1))
-        c3 = self.conv3_1(self.conv3(c2))
-        c4 = self.conv4_1(self.conv4(c3))
-        c5 = self.conv5_1(self.conv5(c4))
-        c6 = self.conv6_1(self.conv6(c5))
+        c0 = self.conv0(x, train)
+        c1 = self.conv1_1(self.conv1(c0, train), train)
+        c2 = self.conv2_1(self.conv2(c1, train), train)
+        c3 = self.conv3_1(self.conv3(c2, train), train)
+        c4 = self.conv4_1(self.conv4(c3, train), train)
+        c5 = self.conv5_1(self.conv5(c4, train), train)
+        c6 = self.conv6_1(self.conv6(c5, train), train)
         inter = {i: getattr(self, f"inter_conv{i}") for i in (5, 4, 3, 2)}
-        return self._decode(c6, c5, c4, c3, c2, inter)
+        return self._decode(c6, c5, c4, c3, c2, inter, train)
 
 
 class FlowNetFusion(nn.Module):
-    def __init__(self, device="cuda"):
+    def __init__(self, with_bn=False, device="cuda"):
         super().__init__()
-        d = device
-        self.conv0 = ConvBlock(11, 64, 3, 1, device=d)
-        self.conv1 = ConvBlock(64, 64, 3, 2, device=d)
-        self.conv1_1 = ConvBlock(64, 128, 3, 1, device=d)
-        self.conv2 = ConvBlock(128, 128, 3, 2, device=d)
-        self.conv2_1 = ConvBlock(128, 128, 3, 1, device=d)
+        d, bn = device, with_bn
+        self.conv0 = ConvBlock(11, 64, 3, 1, bn, device=d)
+        self.conv1 = ConvBlock(64, 64, 3, 2, bn, device=d)
+        self.conv1_1 = ConvBlock(64, 128, 3, 1, bn, device=d)
+        self.conv2 = ConvBlock(128, 128, 3, 2, bn, device=d)
+        self.conv2_1 = ConvBlock(128, 128, 3, 1, bn, device=d)
         self.deconv1 = Deconv(128, 32, d)
         self.deconv0 = Deconv(128 + 32 + 2, 16, d)
-        self.inter_conv1 = ConvBlock(128 + 32 + 2, 32, 3, 1, with_relu=False,
-                                     device=d)
-        self.inter_conv0 = ConvBlock(64 + 16 + 2, 16, 3, 1, with_relu=False,
-                                     device=d)
+        self.inter_conv1 = ConvBlock(128 + 32 + 2, 32, 3, 1, bn, False, device=d)
+        self.inter_conv0 = ConvBlock(64 + 16 + 2, 16, 3, 1, bn, False, device=d)
         self.predict_flow2 = TorchConv(128, 2, 3, device=d)
         self.predict_flow1 = TorchConv(32, 2, 3, device=d)
         self.predict_flow0 = TorchConv(16, 2, 3, device=d)
@@ -281,21 +296,23 @@ class FlowNetFusion(nn.Module):
         self.upsampled_flow1_to_0 = TorchConvT4x2(2, 2, device=d)
 
     def forward(self, x, train: bool = False):
-        c0 = self.conv0(x)
-        c1 = self.conv1_1(self.conv1(c0))
-        c2 = self.conv2_1(self.conv2(c1))
+        c0 = self.conv0(x, train)
+        c1 = self.conv1_1(self.conv1(c0, train), train)
+        c2 = self.conv2_1(self.conv2(c1, train), train)
 
         flow2 = self.predict_flow2(c2)
         cat1 = _cat(c1, self.deconv1(c2), self.upsampled_flow2_to_1(flow2))
-        flow1 = self.predict_flow1(self.inter_conv1(cat1))
+        flow1 = self.predict_flow1(self.inter_conv1(cat1, train))
         cat0 = _cat(c0, self.deconv0(cat1), self.upsampled_flow1_to_0(flow1))
-        return self.predict_flow0(self.inter_conv0(cat0))
+        return self.predict_flow0(self.inter_conv0(cat0, train))
 
 
 @torch.no_grad()
 def init_flownet_(module: nn.Module, seed: int = 0) -> nn.Module:
     """The reference's init from a numpy seed: xavier_uniform weights (fan
-    over kh*kw*(I+O) for both conv and transposed conv), U(0, 1) biases."""
+    over kh*kw*(I+O) for both conv and transposed conv), U(0, 1) biases.
+    BatchNorms keep torch's init (scale 1, shift 0, running mean 0 and
+    variance 1), which is the JAX package's too."""
     rng = np.random.default_rng(seed)
     for _, m in sorted(module.named_modules(), key=lambda kv: kv[0]):
         if not isinstance(m, (TorchConv, TorchConvT4x2)):

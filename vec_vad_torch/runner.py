@@ -26,8 +26,12 @@ Where a split has no bbox fixture, `load_split` computes its boxes
 (fore.detector.compute_foreground_bboxes: motion maps on `device`,
 contours on the host, and with a configured `mmdet_checkpoint` the
 converted Cascade R-CNN on `device`, fore.mmdet_detector) and
-`run_precompute_boxes` writes the fixtures. Not ported (ROADMAP.md):
-calc-flow's mesh (item 5).
+`run_precompute_boxes` writes the fixtures. `load_split`,
+`run_calc_flow` and `run_precompute_boxes` read frames through
+runtime.native_loader.make_frame_stack: the native decoder for
+.jpg/.png/.tif trees (JAX's calc-flow keeps cv2 there; the frames are the
+same), LazyFrameStack for .npy. Not ported (ROADMAP.md): calc-flow's
+mesh (item 5).
 """
 
 from __future__ import annotations
@@ -68,12 +72,13 @@ from vec_vad_torch.runtime.artifacts import (
     load_vad_model,
     save_vad_model,
 )
+from vec_vad_torch.runtime.native_loader import NativeFrameStack, make_frame_stack
 
 
 @dataclass
 class SplitData:
     index: VideoIndex
-    frames: LazyFrameStack
+    frames: LazyFrameStack | NativeFrameStack
     flow: Optional[LazyFlowStack]
     boxes: List[np.ndarray]
 
@@ -115,7 +120,7 @@ def load_split(cfg: PipelineConfig, base: str, split: str,
     index = VideoIndex.from_layout(cfg.dataset_name, root, split, spec.file_ext)
     if index.total_frames == 0:
         raise FileNotFoundError(f"no frames under {root} for split {split!r}")
-    frames = LazyFrameStack(index)
+    frames = make_frame_stack(index)
 
     of_root = os.path.join(base, cfg.optical_flow_dir, cfg.dataset_name)
     flow = None
@@ -408,7 +413,7 @@ def run_calc_flow(
             index = VideoIndex.from_layout(
                 cfg.dataset_name, root, split, cfg.dataset.file_ext
             )
-            lazy = LazyFrameStack(index)
+            lazy = make_frame_stack(index)
             n = index.total_frames
             # frames (uint8) + flow (2 x f32) for the whole split
             footprint = float(np.prod(lazy.shape)) * (1.0 + 8.0 / lazy.shape[-1])
@@ -468,7 +473,7 @@ def run_precompute_boxes(
         if index.total_frames == 0:
             raise FileNotFoundError(f"no frames under {root} for {split!r}")
         boxes = compute_foreground_bboxes(
-            cfg, spec, index, frames=LazyFrameStack(index),
+            cfg, spec, index, frames=make_frame_stack(index),
             detector=_resolve_detector(cfg, dev), device=dev,
         )
         arr = np.empty(len(boxes), dtype=object)
