@@ -257,6 +257,32 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      loss on flow6, equal to autograd's gradient of the tapped tensor on
      each device, the card's against the CPU's (1e-4 of the largest
      gradient), one K1 and one K2 launch.
+ 14. mesh: every route that takes a device mesh, on the mesh that names
+     this card twice (["cuda:0", "cuda:0"]: two replicas on one card, the
+     one-card machine's only mesh), each against the same call on one
+     card: (a) BlockTrainer at the flagship raw-only width (5raw nf=32,
+     patch 32, batch 128 = 2 x 64) for 5 steps in f32 (losses of steps
+     1-2 within 1e-5 relative, every step's 2e-4, the first step's
+     gradients 1e-4 of the largest, training scores 2e-4 of the largest;
+     beside them the one-card fit's drift from itself, run again and with
+     each batch's rows reversed) and bf16 (phase 8's bounds on the
+     training scores); (b)
+     FlowTrainer on FlowNetC at 384x512, batch 7 padded to 8, 3 steps
+     (losses as in (a)), two K1 and two
+     K2 launches a step, K1 and K2 on a replica's (a, b, g) at B = 4
+     against their plain versions; (c) calc-flow's resident driver on 40
+     maps at 240x360 in batches of 4 (1e-4 of the largest |flow|); (d)
+     MultiCameraScorer and MultiCameraFlowScorer at C = 8, 4 cameras a
+     replica (scores 2e-4 of the largest); (e) a 2x2 grid of 4 blocks
+     dealt 2 + 2 (training scores 2e-4 of the largest, then the folded
+     scoring); (f) `python -m vec_vad_torch flow-infer` on a with_bn=False
+     FlowNet2 in a subprocess under torch's default TF32 flags, its .flo
+     maps against the CPU's (1e-4 of the largest |flow|: F1's check), and
+     the same run with the harness's full_f32 taken out, which must read
+     past that bound.
+     Prints each route's ms per step or tick on the mesh beside one card:
+     the cost of the split, the copies and the reductions on one card,
+     not a two-card speed (the machine has one card).
 
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
@@ -269,6 +295,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -540,6 +567,34 @@ BN_STATS_TOL = 1e-5
 # flow2) came 2.3e-3 apart on an H100: wherever the two devices round a
 # pre-activation to the other side of 0, LeakyReLU's slope differs 10x
 TAP_REL_TOL = 1e-4
+# the device mesh (phase 14): the one-card machine's only mesh names the
+# card twice; every route on it is held to the same call on one card
+MESH = ["cuda:0", "cuda:0"]
+MS_BLOCK_CFG = CompletionConfig(nf=32, context_frame_num=4, context_of_num=0, epochs=1,
+                                use_flow=False, border_mode="predict")
+MS_STEPS = 5  # BlockTrainer steps at batch 128 (one epoch of 640 cubes)
+MS_FLOW_BATCH, MS_FLOW_STEPS = 7, 3  # FlowNetC: 7 pairs padded to 8
+MS_CALC_MAPS = 40
+MS_FLEET_C, MS_FLEET_TICKS = 8, 6
+MS_GRID_CUBES = 256  # cubes a block of the 2x2 grid: 2 steps an epoch
+MS_INFER_BASE = Path(__file__).resolve().parent / "build" / "chip_smoke_flow_infer"
+MS_INFER_PAIRS = 3  # FlyingChairs pairs flow-infer runs, at batch 2
+# mesh against one card, set from H100 readings of phase 14 (a) f32:
+# steps 1-2's losses (the same weights, then one Adam update apart) came
+# 5.7e-7 to 2.8e-6 apart, so 1e-5. Later steps drift as one card drifts
+# from itself: Adam moves every parameter by about lr on its gradient's
+# sign, so a rounding difference in a near-zero gradient grows. Step 5:
+# the mesh 1.5e-5 to 8.0e-5 apart in six runs, the one-card fit run
+# again 1.2e-5 to 5.7e-5 and with each batch's rows reversed 2.9e-5 to
+# 5.3e-5 in three, so 2e-4. The first step's gradients: mesh 1.8e-5 to
+# 2.5e-5 of the largest, one card against itself 9.3e-6 to 1.6e-5, so
+# 1e-4. Scores are the serving bound SERVE_REL_TOL. Flow maps: the mesh
+# 4.9e-6 to 5.8e-6 of the largest |flow| (calc-flow) and flow-infer under
+# torch's default flags 3.1e-6 to 3.7e-6 of the CPU's, while flow-infer
+# with F1 unrepaired (TF32) read 1.5e-3 to 1.6e-3, so 1e-4
+MESH_LOSS_REL, MESH_LATER_LOSS_REL = 1e-5, 2e-4
+MESH_GRAD_REL = 1e-4
+MESH_FLOW_REL = 1e-4
 
 
 def check(ok: bool, what) -> None:
@@ -3540,6 +3595,334 @@ def tooling_phase() -> dict:
     return {"launches": launches, "fwd_err": fwd_err}
 
 
+def _mesh_pair(make):
+    """(trainer or scorer on the mesh, the same on one card)."""
+    return make(mesh=MESH), make(device="cuda")
+
+
+def loss_rel(got, want):
+    """(the first two steps', every step's) max relative loss difference."""
+    rel = np.abs(np.asarray(got, np.float64) / np.asarray(want, np.float64) - 1.0)
+    return float(rel[:2].max()), float(rel.max())
+
+
+def check_losses(what, got, want) -> str:
+    first, every = loss_rel(got, want)
+    check(np.isfinite(got).all() and first <= MESH_LOSS_REL
+          and every <= MESH_LATER_LOSS_REL, f"mesh {what} losses {first} / {every}")
+    return f"steps 1-2 {first:.3e}, all {every:.3e}"
+
+
+def mesh_drift_witness(ot, raw, init, losses) -> str:
+    """How far the one-card f32 fit drifts from itself without a mesh: the
+    same fit again, and the fit with each batch's rows in reverse order
+    (the same cubes in the same batches, so the same sums in another
+    order). Returns their max relative loss differences from `losses`
+    (steps 1-2, every step): the floor the mesh's bounds are set from."""
+    again = ot.fit_block(raw, seed=SEED, init_state=init).losses
+    idx, _ = ot._epoch_schedule(raw.shape[0], np.random.default_rng(SEED))
+    check(np.array_equal(np.sort(idx.ravel()), np.arange(raw.shape[0])),
+          "one epoch without padding")
+    moved = np.empty(raw.shape[0], np.int64)
+    moved[idx] = idx[:, ::-1]  # row idx[s, j] now holds cube idx[s, -1 - j]
+    rev = ot.fit_block(raw[moved], seed=SEED, init_state=init).losses
+    out = []
+    for name, l in (("again", again), ("batch rows reversed", rev)):
+        first, every = loss_rel(l, losses)
+        out.append(f"{name} {l.tolist()} (steps 1-2 {first:.3e}, all {every:.3e})")
+    return "one card " + ", ".join(out)
+
+
+def mesh_block_trainer(dtype: str) -> dict:
+    """(a): fit_block of the flagship raw-only net on the mesh and on one
+    card from the same init, then ms per step of each. Returns the
+    mesh's step ms and its one-card twin."""
+    cfg = dataclasses.replace(MS_BLOCK_CFG, compute_dtype=dtype)
+    raw = np.random.default_rng(SEED + 40).integers(
+        0, 256, (MS_STEPS * cfg.batch_size, 32, 32, 15), dtype=np.uint8)
+    mt, ot = _mesh_pair(lambda **k: BlockTrainer(cfg, 32, **k))
+    init = ot.init_state(SEED)
+    got, want = (t.fit_block(raw, seed=SEED, init_state=init) for t in (mt, ot))
+    check(got.losses.shape == (MS_STEPS,) and np.isfinite(got.losses).all(),
+          f"mesh losses {got.losses}")
+    first, every = loss_rel(got.losses, want.losses)
+    score_rel = rel_diff(got.raw_scores, want.raw_scores)
+    x = torch.from_numpy(raw[:cfg.batch_size]).cuda().float() / 255.0
+    w = torch.ones(cfg.batch_size, device="cuda")
+    witness = ""
+    if dtype == "float32":
+        witness = f"; {mesh_drift_witness(ot, raw, init, want.losses)}"
+        # the first step's gradients, before Adam: the replicas' reduction
+        # and BatchNorm's exchange, unamplified; one card's twice for its
+        # own run-to-run spread
+        grads = []
+        with full_f32():
+            for t in (mt, ot, ot):
+                t.start_fit(init)
+                t.train_step(x, None, w)
+                grads.append([p.grad.double() for p in t.net.parameters()])
+        grad_rel, grad_self = (
+            float(max((a - b).abs().max() for a, b in zip(g, grads[1]))
+                  / max(b.abs().max() for b in grads[1])) for g in (grads[0], grads[2]))
+        witness = (f"; first step's gradients max |diff| / max |grad| {grad_rel:.3e} "
+                   f"(one card against itself {grad_self:.3e})" + witness)
+        check(grad_rel <= MESH_GRAD_REL, f"mesh f32 first-step gradients {grad_rel}")
+    with full_f32(mt.compute_dtype):
+        ms = [cuda_ms(lambda t=t: t.train_step(x, None, w), reps=5, warm=2)
+              for t in (mt, ot)]
+    corr = float(np.corrcoef(got.raw_scores, want.raw_scores)[0, 1])
+    ratio = float(got.raw_scores.mean() / want.raw_scores.mean())
+    print(f"mesh: (a) BlockTrainer {dtype}, 5raw nf={cfg.nf} batch {cfg.batch_size} = 2 x "
+          f"{cfg.batch_size // 2}, {MS_STEPS} steps: losses mesh {got.losses.tolist()} "
+          f"one card {want.losses.tolist()}, max rel diff steps 1-2 {first:.3e}, all "
+          f"{every:.3e}{witness}; training "
+          f"scores max |diff| / max |score| {score_rel:.3e}, correlation {corr:.6f}, "
+          f"mean ratio {ratio:.6f}; ms per step mesh {ms[0]:.3f} one card {ms[1]:.3f} "
+          f"({ms[0] / ms[1]:.3f}x)", flush=True)
+    if dtype == "float32":
+        check_losses("f32 BlockTrainer", got.losses, want.losses)
+        check(score_rel <= SERVE_REL_TOL, f"mesh f32 training scores {score_rel}")
+    else:
+        check(corr > BF16_CORR and abs(ratio - 1.0) < BF16_MEAN_RATIO,
+              f"mesh bf16 training scores corr {corr} ratio {ratio}")
+    return {"ms": ms}
+
+
+def mesh_flow_trainer() -> dict:
+    """(b): FlowNetC steps on the mesh (batch 7 padded to 8, 4 pairs a
+    replica) and on one card; K1 and K2 on a replica's (a, b, g)."""
+    data = SyntheticPairs(MS_FLOW_BATCH * MS_FLOW_STEPS, FLOW_HW, SEED + 41)
+    batches = list(data.batches(MS_FLOW_BATCH, shuffle=False))
+    mt, ot = _mesh_pair(lambda **k: FlowTrainer(make_flow_net("FlowNetC", SEED, "cuda"),
+                                                **k))
+    finish = capture_cost_volume(mt.net)
+    got, want, ms = [], [], ([], [])
+    kernels.reset_launch_counts()
+    for i, (pairs, target) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got.append(float(mt.step(pairs, target)["loss"]))
+        ms[0].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            a, b, g = finish()
+    launches = dict(kernels.launch_counts)
+    for pairs, target in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want.append(float(ot.step(pairs, target)["loss"]))
+        ms[1].append((time.perf_counter() - t0) * 1e3)
+    rel = check_losses("FlowNetC", got, want)
+    check(tuple(a.shape) == (4,) + TRAIN_SHAPE[1:], f"replica's conv3 {tuple(a.shape)}")
+    fwd_err, bwd_err = check_fwd(a, b), check_bwd(a, b, g, torch.float32)
+    print(f"mesh: (b) FlowTrainer FlowNetC 2x{FLOW_HW} batch {MS_FLOW_BATCH} padded to 8, "
+          f"{MS_FLOW_STEPS} steps: losses mesh {got} one card {want}, max rel diff "
+          f"{rel}; launches {launches}; K1 / K2 on a replica's (a, b, g) "
+          f"{tuple(a.shape)} max_abs_err {fwd_err:.3e} / {bwd_err:.3e}; ms per step "
+          f"(synchronised, steps 2-{MS_FLOW_STEPS}) mesh {med(ms[0][1:]):.3f} one card "
+          f"{med(ms[1][1:]):.3f}", flush=True)
+    n = 2 * MS_FLOW_STEPS
+    check(launches == {"correlation": n, "correlation_bwd": n}, f"mesh launches {launches}")
+    return {"launches": launches, "fwd_err": fwd_err, "bwd_err": bwd_err,
+            "ms": (med(ms[0][1:]), med(ms[1][1:]))}
+
+
+def mesh_calc_flow(flow_net) -> dict:
+    """(c): the resident flow driver over 40 frames of one video on the
+    mesh (FlowNet2 replicas, 20 pairs each in batches of 4) and on one
+    card."""
+    frames = np.stack(make_stream(FRAME_HW, (MS_CALC_MAPS,), SEED + 42)[0][0])
+    index = VideoIndex(["v"], np.array([MS_CALC_MAPS]))
+    out, secs = [], []
+    for mesh in (MESH, None):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(driver.compute_optical_flow(flow_net, index, frames, chunk=4,
+                                               resident=True, device="cuda", mesh=mesh))
+        secs.append(time.perf_counter() - t0)
+        if mesh is not None:
+            launches = kernels.launch_counts["correlation"]
+    rel = rel_diff(out[0], out[1])
+    print(f"mesh: (c) calc-flow driver, {MS_CALC_MAPS} maps at {FRAME_HW} in batches "
+          f"of 4: mesh {MS_CALC_MAPS / secs[0]:.2f} maps/s ({launches} K1 launches), one "
+          f"card {MS_CALC_MAPS / secs[1]:.2f} maps/s; max |diff| / max |flow| {rel:.3e} "
+          f"(bound {MESH_FLOW_REL})", flush=True)
+    check(np.isfinite(out[0]).all() and rel <= MESH_FLOW_REL, f"mesh calc-flow {rel}")
+    check(launches == MS_CALC_MAPS // 4, f"mesh calc-flow launches {launches}")
+    return {"launches": launches}
+
+
+def mesh_fleets(flow_net) -> dict:
+    """(d): both fleets at C = 8 on the mesh and on one card, each camera
+    on its own video; ms per tick of each (time_device_tick)."""
+    model = make_model(**SERVE_MODEL)
+    videos = make_stream(FRAME_HW, (MS_FLEET_TICKS,) * MS_FLEET_C, seed=SEED + 43)
+    rng = np.random.default_rng(SEED + 44)
+    flows = rng.normal(0.0, 1.0, (MS_FLEET_TICKS, MS_FLEET_C) + FRAME_HW + (2,)
+                       ).astype(np.float32)
+
+    def tick(t):
+        return (np.stack([videos[c][0][t] for c in range(MS_FLEET_C)]),
+                [videos[c][1][t] for c in range(MS_FLEET_C)])
+
+    def precomputed(sc):
+        sc.start_video()
+        return np.asarray([sc.push_tick(*tick(t), flows=flows[t])
+                           for t in range(MS_FLEET_TICKS)], np.float64)
+
+    def live(sc):
+        sc.start_video()
+        rows = [sc.push_tick(*tick(t)) for t in range(MS_FLEET_TICKS)]
+        rows.append(sc.end_video())
+        return np.asarray([r for r in rows if r is not None], np.float64)
+
+    lines, launches = [], 0
+    for name, make, run in (
+            ("MultiCameraScorer", lambda **k: MultiCameraScorer.from_model(
+                model, n_cameras=MS_FLEET_C, **k), precomputed),
+            ("MultiCameraFlowScorer", lambda **k: MultiCameraFlowScorer.from_model(
+                model, n_cameras=MS_FLEET_C, flow_net=flow_net, flow_model_hw=FLOW_HW,
+                **k), live)):
+        ms_fleet, one = _mesh_pair(make)
+        (got, k1) = k1_counted(lambda: run(ms_fleet))
+        launches += k1
+        want = run(one)
+        rel = rel_diff(got, want)
+        ms = [sc.time_device_tick(*tick(2), k=4, repeats=2) for sc in (ms_fleet, one)]
+        lines.append(f"{name} {got.shape} scores max |diff| / max |score| {rel:.3e}, "
+                     f"K1 launches {k1}, ms/tick mesh {ms[0]:.3f} one card {ms[1]:.3f}")
+        check(got.shape == (MS_FLEET_TICKS, MS_FLEET_C) and np.isfinite(got).all(),
+              f"mesh {name} scores {got.shape}")
+        check(rel <= SERVE_REL_TOL, f"mesh {name} against one card: {rel}")
+        del ms_fleet, one
+    print(f"mesh: (d) C = {MS_FLEET_C}, 4 cameras a replica: " + "; ".join(lines),
+          flush=True)
+    # the live fleet: ticks 0, 2-5 and end_video are live, one K1 a replica
+    check(launches == 2 * MS_FLEET_TICKS,
+          f"live fleet K1 launches {launches}: one a replica a live tick")
+    return {"launches": launches}
+
+
+def mesh_grid() -> None:
+    """(e): a 2x2 grid's 4 blocks dealt 2 + 2 over the mesh against the
+    one-card grid (4 folded), training and scoring."""
+    cfg = GR_CFG.model
+    cfg = dataclasses.replace(cfg, epochs=1)
+    rng = np.random.default_rng(SEED + 45)
+    data = [((0, h, w), rng.integers(0, 256, (MS_GRID_CUBES, 32, 32, 15), dtype=np.uint8),
+             None) for h in range(2) for w in range(2)]
+    mg, og = _mesh_pair(lambda **k: grid_trainer.GridTrainer(cfg, 32, **k))
+    init = og.solo.init_state(SEED)
+    t0 = time.perf_counter()
+    got = mg.fit_blocks(data, seed=SEED, init_state=init)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = og.fit_blocks(data, seed=SEED, init_state=init)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    train_rel = max(rel_diff(got[k].raw_scores, want[k].raw_scores) for k, _, _ in data)
+    sc_got, sc_want = (g.score_blocks(want, data) for g in (mg, og))
+    score_rel = max(rel_diff(sc_got[k][0], sc_want[k][0]) for k, _, _ in data)
+    print(f"mesh: (e) 2x2 grid, 4 blocks of {MS_GRID_CUBES} cubes dealt 2 + 2: fit_blocks "
+          f"mesh {t1 - t0:.3f} s one card {t2 - t1:.3f} s; training scores max |diff| / "
+          f"max |score| {train_rel:.3e}; score_blocks {score_rel:.3e}", flush=True)
+    check(train_rel <= SERVE_REL_TOL, f"mesh grid training scores {train_rel}")
+    check(score_rel <= SERVE_REL_TOL, f"mesh grid scoring {score_rel}")
+
+
+def write_chairs(root: Path, n: int, seed: int) -> None:
+    """n FlyingChairs samples at FLOW_HW (*-img_0.ppm, *-img_1.ppm,
+    *-flow.flo): SyntheticPairs' textures as binary PPM, no cv2."""
+    from vec_vad_torch.utils.flowviz import write_flo
+
+    data = SyntheticPairs(n, FLOW_HW, seed)
+    root.mkdir(parents=True)
+    h, w = FLOW_HW
+    for i in range(n):
+        for k in range(2):  # the pairs are BGR, as cv2.imread gives; PPM is RGB
+            rgb = data.pairs[i, ..., 3 * k: 3 * k + 3][..., ::-1].astype(np.uint8)
+            (root / f"{i:05d}-img_{k}.ppm").write_bytes(
+                b"P6\n%d %d\n255\n" % (w, h) + rgb.tobytes())
+        write_flo(str(root / f"{i:05d}-flow.flo"), data.flows[i])
+
+
+def mesh_flow_infer() -> None:
+    """(f): `flow-infer` on a with_bn=False FlowNet2 in a subprocess, so
+    torch's default TF32 flags apply there (cuDNN's on), against the same
+    weights on the CPU (F1's check on the card)."""
+    from vec_vad_torch.flow.datasets import FlyingChairs
+    from vec_vad_torch.models.flownet.convert import reference_key
+    from vec_vad_torch.utils.flowviz import read_flo
+
+    shutil.rmtree(MS_INFER_BASE, ignore_errors=True)
+    write_chairs(MS_INFER_BASE / "data", MS_INFER_PAIRS, SEED + 46)
+    cpu_net = make_flow_net("FlowNet2", SEED + 7, "cpu")
+    ckpt = MS_INFER_BASE / "flownet2.pth"
+    torch.save({"state_dict": {reference_key(k): v for k, v in
+                               cpu_net.inner.state_dict().items()}}, ckpt)
+    root = Path(__file__).resolve().parent
+    ds = FlyingChairs(str(MS_INFER_BASE / "data"))
+    with torch.no_grad():
+        want = np.concatenate([cpu_net(torch.from_numpy(np.asarray(p, np.float32))).numpy()
+                               for p, _ in ds.batches(2, shuffle=False)])
+
+    def flow_infer(out: Path, prelude: str = ""):
+        """`python -m vec_vad_torch flow-infer` in a subprocess, or the CLI's
+        main after `prelude`; (.flo maps, wall s, its last lines)."""
+        entry = (["-c", prelude + "import sys\nfrom vec_vad_torch.cli import main\n"
+                  "sys.exit(main(sys.argv[1:]))"] if prelude else ["-m", "vec_vad_torch"])
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, *entry, "flow-infer", "--data-root", str(MS_INFER_BASE / "data"), "--net",
+             "FlowNet2", "--checkpoint", str(ckpt), "--batch-size", "2", "--save-flow",
+             "--out", str(out), "--device", "cuda"],
+            cwd=str(root), capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(root)})
+        check(r.returncode == 0, f"flow-infer exited {r.returncode}: {r.stderr[-2000:]}")
+        got = np.stack([read_flo(str(out / f"{i:06d}.flo")) for i in range(MS_INFER_PAIRS)])
+        check(got.shape == want.shape, f"flow-infer maps {got.shape}")
+        return got, time.perf_counter() - t0, r.stdout.strip().splitlines()[-2:]
+
+    got, wall, tail = flow_infer(MS_INFER_BASE / "card")
+    # the control: the same run with the harness's full_f32 taken out (F1
+    # unrepaired), which the bound must tell apart
+    fault, _, _ = flow_infer(MS_INFER_BASE / "fault", (
+        "import contextlib\nimport vec_vad_torch.flow.harness as h\n"
+        "h.full_f32 = lambda dtype=None: contextlib.nullcontext()\n"))
+    rel, rel_fault = rel_diff(got, want), rel_diff(fault, want)
+    print(f"mesh: (f) flow-infer subprocess (torch's default TF32 flags), FlowNet2 "
+          f"with_bn=False, {MS_INFER_PAIRS} FlyingChairs pairs at {FLOW_HW}, batch 2: "
+          f"{wall:.1f} s wall; .flo maps against the CPU max |diff| / max |flow| "
+          f"{rel:.3e} (bound {MESH_FLOW_REL}); with the harness's full_f32 taken out "
+          f"(F1 unrepaired) {rel_fault:.3e}; its output: {tail}", flush=True)
+    check(rel <= MESH_FLOW_REL, f"flow-infer {rel}")
+    check(rel_fault > MESH_FLOW_REL, f"flow-infer without F1's repair {rel_fault} "
+          f"within the bound {MESH_FLOW_REL}: the check cannot see the fault")
+    shutil.rmtree(MS_INFER_BASE, ignore_errors=True)
+
+
+def mesh_phase() -> dict:
+    """Every route that takes a device mesh, on ["cuda:0", "cuda:0"]
+    against one card (module docstring, phase 14). Returns the mesh
+    routes' K1 and K2 launches and K1's and K2's errors at B = 4."""
+    ab = {d: mesh_block_trainer(d) for d in ("float32", "bfloat16")}
+    ft = mesh_flow_trainer()
+    flow_net = make_flownet2(SEED, device="cuda")
+    calc = mesh_calc_flow(flow_net)
+    fleets = mesh_fleets(flow_net)
+    del flow_net
+    mesh_grid()
+    mesh_flow_infer()
+    print(f"mesh: ms a step or tick, mesh / one card on this card (the split, copies "
+          f"and reductions of two replicas on one card; no two-card speed): "
+          f"BlockTrainer f32 {ab['float32']['ms'][0] / ab['float32']['ms'][1]:.3f}x, "
+          f"bf16 {ab['bfloat16']['ms'][0] / ab['bfloat16']['ms'][1]:.3f}x, FlowTrainer "
+          f"{ft['ms'][0] / ft['ms'][1]:.3f}x", flush=True)
+    return {"k1": ft["launches"]["correlation"] + calc["launches"] + fleets["launches"],
+            "k2": ft["launches"]["correlation_bwd"], "fwd_err": ft["fwd_err"],
+            "bwd_err": ft["bwd_err"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -3697,23 +4080,29 @@ def main() -> int:
     # -- tooling phase: the decoder, avenue through the CLI, visualize, the
     # layer profiler, the with_bn nets, GradTaps ----------------------------
     tl = tooling_phase()
-    phase_done("tooling", t_phase)
+    t_phase = phase_done("tooling", t_phase)
+
+    # -- mesh phase: every route that takes a device mesh, on the card twice
+    ms = mesh_phase()
+    phase_done("mesh", t_phase)
 
     rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"],
                                calc["fwd_err"], surf["fwd_err"], fg["fwd_err"],
-                               tl["fwd_err"]))
-    rec_bwd.update(max_abs_err=max(rec_bwd["max_abs_err"], train["bwd_err"]))
+                               tl["fwd_err"], ms["fwd_err"]))
+    rec_bwd.update(max_abs_err=max(rec_bwd["max_abs_err"], train["bwd_err"],
+                                   ms["bwd_err"]))
     tl_k1, tl_k2 = tl["launches"]["correlation"], tl["launches"]["correlation_bwd"]
     k1 = (launches.get("correlation", 0) + train["launches"]["correlation"]
           + ft_launches["correlation"] + calc["launches"] + ts_launches
-          + surf_launches + fg["launches"] + tl_k1)
-    k2 = train["launches"]["correlation_bwd"] + ft_launches["correlation_bwd"] + tl_k2
+          + surf_launches + fg["launches"] + tl_k1 + ms["k1"])
+    k2 = (train["launches"]["correlation_bwd"] + ft_launches["correlation_bwd"] + tl_k2
+          + ms["k2"])
     print(f"launches on the main paths: K1 {k1} (serving {launches.get('correlation', 0)}, "
           f"FlowNetC training {train['launches']['correlation']}, FlowNet2 steps "
           f"{ft_launches['correlation']}, calc-flow {calc['launches']}, two-stream "
           f"calc-flow {ts_launches}, serving surface {surf_launches}, foreground "
-          f"{fg['launches']}, detector 0, model grid 0, tooling {tl_k1}); K2 {k2} "
-          f"(tooling {tl_k2})")
+          f"{fg['launches']}, detector 0, model grid 0, tooling {tl_k1}, mesh "
+          f"{ms['k1']}); K2 {k2} (tooling {tl_k2}, mesh {ms['k2']})")
     # no single PyTorch call computes the cost volume or its gradients
     record = {"kernels": [
         {"name": "correlation_fwd", "route": "cuda",

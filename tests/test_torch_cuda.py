@@ -863,3 +863,62 @@ def test_layer_profiler_on_card(cuda):
         assert float((out[name] - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     prog = lp.profile_completion_program(batches=(8,), mode="fwd", iters=2, device=cuda)
     assert set(prog) == {"fwd_b8_float32", "fwd_b8_bfloat16"}
+
+
+# ---------------------------------------------------------------------------
+# the device mesh: a mesh that names the card twice (the one-card machine's
+# only mesh; NCCL and torch.cuda.comm refuse it, the port's copies do not)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_trainer_on_repeated_card_mesh_matches_one_card(cuda, dtype):
+    """fit_block on ["cuda:0", "cuda:0"] (two replicas, their forwards in
+    lockstep threads that exchange BatchNorm statistics, one backward a
+    step) against the one-card fit from the same init_state: f32 losses
+    within 1e-5 relative and training scores within 1e-3 (bf16: the first
+    loss within 4e-4, tests/test_torch_dataset_scale.py's bound, and the
+    scores' mean ratio within 0.15)."""
+    from vec_vad_torch.config import CompletionConfig
+    from vec_vad_torch.train.trainer import BlockTrainer
+
+    cfg = CompletionConfig(nf=4, epochs=2, batch_size=16, context_of_num=0,
+                           use_flow=False, compute_dtype=dtype)
+    raw = np.random.default_rng(3).integers(0, 256, (40, 16, 16, 15), dtype=np.uint8)
+    mesh_t = BlockTrainer(cfg, 16, mesh=["cuda:0", "cuda:0"])
+    one_t = BlockTrainer(cfg, 16, device=cuda)
+    init = one_t.init_state(2)
+    got, want = (t.fit_block(raw, seed=2, init_state=init) for t in (mesh_t, one_t))
+    assert len(mesh_t._replicas) == 2 and np.isfinite(got.losses).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5)
+        scale = np.max(np.abs(want.raw_scores))
+        assert np.max(np.abs(got.raw_scores - want.raw_scores)) <= 1e-3 * scale
+    else:
+        assert abs(got.losses[0] - want.losses[0]) <= 4e-4 * abs(want.losses[0])
+        assert abs(got.raw_scores.mean() / want.raw_scores.mean() - 1.0) < 0.15
+
+
+@pytest.mark.cuda
+def test_flow_trainer_on_repeated_card_mesh_matches_one_card(cuda, full_f32):
+    """Two FlowNetC steps at batch 3 on ["cuda:0", "cuda:0"] (padded to 4,
+    2 rows a replica, K1 and K2 launched in each replica) against the
+    one-card trainer from the same seeded weights: losses within 1e-5
+    relative and every weight within 4e-4, twice Adam's step (lr 1e-4)
+    a step: cuDNN's weight gradients sum with atomics, so a gradient near
+    0 may round to either sign, and Adam moves it by lr either way."""
+    rng = np.random.default_rng(11)
+    batches = [(rng.uniform(0, 255, (3, 64, 64, 6)).astype(np.float32),
+                rng.normal(0, 3, (3, 64, 64, 2)).astype(np.float32)) for _ in range(2)]
+    mesh_t = FlowTrainer(make_flow_net("FlowNetC", 3, "cuda"), mesh=["cuda:0", "cuda:0"])
+    one_t = FlowTrainer(make_flow_net("FlowNetC", 3, "cuda"), device=cuda)
+    for pairs, target in batches:
+        kernels.reset_launch_counts()
+        got = mesh_t.step(pairs, target)
+        torch.cuda.synchronize()
+        assert dict(kernels.launch_counts) == {"correlation": 2, "correlation_bwd": 2}
+        want = one_t.step(pairs, target)
+        assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"]))
+    for (k, a), b in zip(mesh_t.net.named_parameters(), one_t.net.parameters()):
+        assert float((a - b).detach().abs().max()) <= 4e-4, k

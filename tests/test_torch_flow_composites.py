@@ -133,7 +133,8 @@ def test_reference_checkpoint_loads_like_jax(tmp_path):
     """A .pth.tar in the reference's key layout ('state_dict' entry,
     <m>.<conv>.0.* keys, one BatchNorm entry the nets lack, one conv
     missing): the port loads the same tensors as vec_vad_tpu, reports the
-    same matched and missing keys, and leaves the missing conv as it was."""
+    same matched keys and the same missing weight (and the missing conv's
+    bias besides), and leaves the missing conv as it was."""
     rng = np.random.default_rng(21)
     x = np.zeros((1, 2, 64, 64, 3), np.float32)
     jnet = _jax_net("FlowNet2CS")
@@ -155,7 +156,9 @@ def test_reference_checkpoint_loads_like_jax(tmp_path):
     before = tnet.flownets_1.conv6_1.conv.weight.detach().clone()
     trep = load_flownet_checkpoint(tnet, str(path))
     assert sorted(trep["matched"]) == sorted(jrep["matched"])
-    assert trep["missing"] == jrep["missing"] == [dropped[0]]
+    # vec_vad_tpu lists the absent weight only; the port lists its bias too
+    assert jrep["missing"] == [dropped[0]]
+    assert trep["missing"] == list(dropped)
     want = flownet2_from_jax(variables)
     for k, v in tnet.state_dict().items():
         if reference_key(k) in dropped:

@@ -67,7 +67,8 @@ def test_sources_import_nothing_of_jax():
     pat = re.compile(
         r"^\s*(import|from)\s+(%s)\b" % "|".join(FORBIDDEN), re.MULTILINE
     )
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_phase_times.py"]
     assert len(files) > 15
     bad = [str(f) for f in files if pat.search(f.read_text())]
     assert not bad, bad
@@ -167,6 +168,25 @@ def test_tooling_entry_points_need_a_card(monkeypatch):
     assert set(lp.ensemble_formulation_outputs(batch=1, members=2, H=4, C=4,
                                                device="cpu")) == {
         "vmap", "grouped", "blockdiag", "sharedw_batch"}
+
+
+def test_mesh_entry_points_need_a_card(monkeypatch):
+    """The device mesh (vec_vad_torch/parallel) imports nothing of JAX and
+    has no CPU fallback: get_mesh() and a mesh of cards raise without a
+    card, and the CPU is a mesh entry only when named."""
+    from vec_vad_torch import parallel
+    from vec_vad_torch.config import CompletionConfig
+    from vec_vad_torch.train.trainer import BlockTrainer
+
+    assert "vec_vad_torch.parallel.mesh" in _port_modules()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.get_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BlockTrainer(CompletionConfig(nf=4, use_flow=False), 16, mesh=["cuda", "cuda"])
+    assert parallel.get_mesh(device="cpu").devices == (torch.device("cpu"),)
+    mesh = parallel.get_mesh(["cpu", "cpu"])
+    assert mesh.size == 2 and parallel.as_mesh("cpu").size == 1
 
 
 def test_decoder_is_the_ports_own():
@@ -293,6 +313,8 @@ def test_host_copies_match_jax_package():
                        "visualize_flow", "show_flow", "scale_image", "flow_error"]),
     ("runtime.layer_profile", ["UNET_CONV_SHAPES", "FLAGSHIP_PER_CUBE_FWD_FLOPS",
                                "format_table"]),
+    ("utils.blocks", ["calc_block_idx_batched"]),
+    ("parallel.mesh", ["pad_to_multiple"]),
 ])
 def test_copied_host_functions_equal_jax_package(module, names):
     """The host (NumPy) functions the main path copies are the JAX

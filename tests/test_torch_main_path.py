@@ -685,20 +685,15 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
 
 
 def test_left_out_routes_refuse_by_name(tmp_path):
-    """What the port leaves out raises and names its ROADMAP item: a fleet
-    sharded over a device mesh (item 5). Computing boxes without a bbox
-    fixture (item 4.1), `serve --motion` (item 4.3), the appearance
-    detector behind a configured `mmdet_checkpoint` (item 4.2) and the
-    parallel GridTrainer (item 2.8) are ported and no longer refuse
+    """Nothing the port once left out still refuses by name: a split with
+    neither frames nor a bbox fixture raises FileNotFoundError, not a
+    refusal. Computing boxes without a bbox fixture (item 4.1), `serve
+    --motion` (item 4.3), the appearance detector behind a configured
+    `mmdet_checkpoint` (item 4.2), the parallel GridTrainer (item 2.8)
+    and the fleets over a device mesh (item 5) are ported
     (tests/test_torch_foreground.py, tests/test_torch_motion_serving.py,
-    tests/test_torch_detectors.py, tests/test_torch_grid.py)."""
-    from vec_vad_torch.serve import MultiCameraFlowScorer, MultiCameraScorer
-
+    tests/test_torch_detectors.py, tests/test_torch_grid.py,
+    tests/test_torch_mesh_routes.py)."""
     jcfg, tcfg = _configs()
     with pytest.raises(FileNotFoundError):
         t_runner.load_split(tcfg, str(tmp_path), "train", device="cpu")
-    for fleet, kw in ((MultiCameraScorer, {}),
-                      (MultiCameraFlowScorer, {"flow_net": None})):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fleet(tcfg, {}, (0.0, 1.0), n_cameras=2, mesh=object(), device="cpu",
-                  **kw)

@@ -41,7 +41,14 @@ Ported so far:
     (runtime.native_loader over csrc/vadio.cpp, built by g++),
     utils.visualize / flowviz / png / gradtap / meters and the visualize
     and extract-frames CLI, the layer profiler (runtime.layer_profile),
-    and the FlowNet family with with_bn=True.
+    and the FlowNet family with with_bn=True;
+  * the device mesh — parallel.Mesh / get_mesh (an ordered tuple of
+    devices, which may repeat one) and every route that takes `mesh=`:
+    BlockTrainer (data parallel, BatchNorm statistics over the whole
+    batch), FlowTrainer, GridTrainer (blocks dealt over the entries),
+    calc-flow (`run_calc_flow(use_mesh=)`, `calc-flow --no-mesh`) and
+    both camera fleets; one replica of the model an entry, driven by one
+    process.
 The FlowNetC correlation is differentiable and runs as hand-written CUDA
 kernels on the card: csrc/correlation.cu forward, csrc/correlation_bwd.cu
 backward.

@@ -40,8 +40,9 @@ cv2, pairing the masks with the dataset's test split (`--config`) or
 with `--frames-root` in natural order; `extract-frames` needs cv2 (its
 video decoder), which the card's machine lacks. Frames of .jpg/.png/.tif
 trees are read by the native decoder (runtime/native_loader.py).
-calc-flow has no `--no-mesh`: the JAX package's data-parallel mesh is not
-ported, nor is `bench` (ROADMAP.md).
+calc-flow runs its flow nets over every visible card when there is more
+than one, unless `--no-mesh` keeps it on `--device`. `bench` is not
+ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -132,7 +133,7 @@ def cmd_calc_flow(args) -> int:
         cfg, args.base, checkpoint=args.checkpoint, splits=splits,
         resident=args.resident, segment_frames=args.segment_frames or None,
         chunk=args.chunk or None, flow_dtype=args.flow_dtype,
-        device=args.device,
+        device=args.device, use_mesh=not args.no_mesh,
     )
     return 0
 
@@ -782,6 +783,11 @@ def main(argv=None) -> int:
         "--chunk", type=int, default=0,
         help="frame pairs per FlowNet batch (0 = per-dtype default: "
         "4 f32, 8 bf16)",
+    )
+    p.add_argument(
+        "--no-mesh", action="store_true",
+        help="disable the automatic data-parallel pair sharding over "
+        "multi-device meshes (outputs are identical either way)",
     )
     _add_device(p)
     p.set_defaults(fn=cmd_calc_flow)

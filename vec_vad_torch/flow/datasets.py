@@ -1,5 +1,7 @@
 """Optical-flow training datasets, copied from vec_vad_tpu/flow/datasets.py
-(numpy and cv2 only; the port keeps its own copy).
+(numpy and cv2 only; the port keeps its own copy). FlyingChairs' binary
+.ppm frames are read with numpy, as cv2.imread gives them (BGR), so that
+tree needs no cv2; other image formats go through cv2.
 
 Capability parity with FlowNet2_src/datasets.py (MpiSintel, FlyingChairs,
 ChairsSDHom loaders for the flow fine-tuning harness): each dataset yields
@@ -51,7 +53,35 @@ import numpy as np
 from vec_vad_torch.utils.flowviz import read_flo
 
 
+def _read_ppm(path: str) -> Optional[np.ndarray]:
+    """A binary 8-bit PPM (P6, maxval 255) as cv2.imread returns it:
+    (H, W, 3) uint8 in BGR order; None for any other PPM flavour."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fields, pos = [], 0
+    while len(fields) < 4:  # magic, width, height, maxval
+        while pos < len(data) and data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":  # a comment runs to the end of its line
+            pos = data.find(b"\n", pos) + 1 or len(data)
+            continue
+        end = pos
+        while end < len(data) and not data[end:end + 1].isspace():
+            end += 1
+        fields.append(data[pos:end])
+        pos = end
+    if fields[0] != b"P6" or fields[3] != b"255":
+        return None
+    w, h = int(fields[1]), int(fields[2])
+    pixels = np.frombuffer(data, np.uint8, h * w * 3, pos + 1)
+    return np.ascontiguousarray(pixels.reshape(h, w, 3)[..., ::-1])
+
+
 def _imread(path: str) -> np.ndarray:
+    if path.endswith(".ppm") and os.path.exists(path):
+        img = _read_ppm(path)
+        if img is not None:
+            return img
     import cv2
 
     img = cv2.imread(path)

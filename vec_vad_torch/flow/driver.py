@@ -13,8 +13,16 @@ Replicates calc_optical_flow.py:25-85, batched on the card:
 Frames go to the device as uint8 and become float32 there, in the resize.
 Pairs run through the flow net in batches of `chunk`; a split's last
 batch (and a segment's) runs at its own size, unpadded, since every pair's
-flow is computed independently of the others in its batch. The JAX
-driver's data-parallel mesh branch is not ported.
+flow is computed independently of the others in its batch.
+
+On a mesh of more than one entry (`mesh=`, the resident and segmented
+routes, as in vec_vad_tpu) the pair axis is cut into one contiguous share
+an entry, JAX's (n_dev, steps, chunk) layout, and each entry runs its
+share in batches of `chunk` on a FlowNet2 replica of its own
+(parallel.mesh.replicate); the replicas never talk, and the maps equal
+the one-device route's. JAX pads the pairs to a multiple of
+chunk * entries; here the padding is not run (a share's last batch runs
+at its own size).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch.nn as nn
 from vec_vad_torch.data.video_index import VideoIndex
 from vec_vad_torch.device import resolve_device
 from vec_vad_torch.ops.stc import _interp_matrix
+from vec_vad_torch.parallel.mesh import as_mesh, replicate
 
 
 def resize_bilinear(frames: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -94,6 +103,53 @@ def _run_pairs(net, frames, first, second, chunk, model_hw,
             frames.index_select(0, i2[lo:hi]), model_hw, compute_dtype)
 
 
+def _run_pairs_mesh(nets, frames, first, second, chunk, model_hw,
+                    compute_dtype) -> Iterator[Tuple[int, int, torch.Tensor]]:
+    """The pairs over a mesh: nets and frames one an entry (frames on the
+    entry's device), entry d's share the pairs [d * per, (d + 1) * per)
+    with per = ceil(n / entries) rounded up to a multiple of chunk; step s
+    runs batch s of every share, in mesh order, so distinct cards overlap.
+    Yields (lo, hi, flow[lo:hi]), the flow on its entry's device."""
+    n = len(first)
+    per = -(-n // len(nets))
+    per = -(-per // chunk) * chunk
+    idx = [(torch.from_numpy(np.asarray(first, np.int64)).to(f.device)
+            .clamp_(0, f.shape[0] - 1),
+            torch.from_numpy(np.asarray(second, np.int64)).to(f.device)
+            .clamp_(0, f.shape[0] - 1)) for f in frames]
+    for s in range(0, per, chunk):
+        for d, (net, fr, (i1, i2)) in enumerate(zip(nets, frames, idx)):
+            lo = d * per + s
+            hi = min(lo + chunk, (d + 1) * per, n)
+            if lo < hi:
+                yield lo, hi, _flow_batch(
+                    net, fr.index_select(0, i1[lo:hi]),
+                    fr.index_select(0, i2[lo:hi]), model_hw, compute_dtype)
+
+
+def _mesh_replicas(net, dev, mesh):
+    """One flow net an entry of `mesh` (None: no mesh), the first `net`
+    itself, which must live on the first entry's device; None for a mesh
+    of one entry."""
+    if mesh is None:
+        return None
+    mesh = as_mesh(mesh)
+    if mesh.devices[0] != dev:
+        raise ValueError(f"the mesh starts at {mesh.devices[0]}, the flow net "
+                         f"lives on {dev}")
+    return replicate(net, mesh) if mesh.size > 1 else None
+
+
+def _mesh_frames(frames, nets) -> list:
+    """The frame stack on every entry's device (one upload a device)."""
+    per_dev = {}
+    for net in nets:
+        dev = next(net.parameters()).device
+        if dev not in per_dev:
+            per_dev[dev] = _to_device(frames, dev)
+    return [per_dev[next(net.parameters()).device] for net in nets]
+
+
 def _prepare(net, compute_dtype, device) -> Tuple[nn.Module, torch.device]:
     """The device (the card unless asked for the CPU) and the net in
     compute_dtype, in eval mode, checked to live on that device."""
@@ -121,6 +177,7 @@ def compute_optical_flow(
     resident: bool = False,
     compute_dtype=torch.float32,
     device="cuda",
+    mesh=None,
 ) -> np.ndarray:
     """Dense flow for every frame of a split: (N, H, W, 2) float32.
 
@@ -131,13 +188,22 @@ def compute_optical_flow(
     each batch's flow is downloaded as it is made.
 
     compute_dtype=torch.bfloat16 runs the net on a bf16 copy of its
-    weights; the output stays float32 and shifts by bf16 rounding."""
+    weights; the output stays float32 and shifts by bf16 rounding.
+
+    mesh (resident route only, as in vec_vad_tpu): a parallel.mesh.Mesh
+    (or a list of devices) starting at `device`; with more than one entry
+    the pairs run over the entries' replicas (module docstring), the
+    flow gathered on `device`."""
     net, dev = _prepare(net, compute_dtype, device)
     n, H, W = frames.shape[:3]
     first, second = flow_pair_indices(index)
-    frames_d = _to_device(frames, dev)
-    batches = _run_pairs(net, frames_d, first, second, chunk, model_hw,
-                         compute_dtype)
+    nets = _mesh_replicas(net, dev, mesh) if resident else None
+    if nets is not None:
+        batches = _run_pairs_mesh(nets, _mesh_frames(frames, nets), first,
+                                  second, chunk, model_hw, compute_dtype)
+    else:
+        batches = _run_pairs(net, _to_device(frames, dev), first, second,
+                             chunk, model_hw, compute_dtype)
     if resident:
         flow = torch.empty((n, H, W, 2), dtype=torch.float32, device=dev)
         for lo, hi, f in batches:
@@ -160,6 +226,7 @@ def compute_optical_flow_segmented(
     model_hw: Tuple[int, int] = (384, 512),
     compute_dtype=torch.float32,
     device="cuda",
+    mesh=None,
 ) -> int:
     """Memory-bounded flow precomputation for splits beyond device or host
     memory. The reference streams one frame at a time and writes each
@@ -173,23 +240,37 @@ def compute_optical_flow_segmented(
 
     `frames` is any array-like supporting `.shape` and `[lo:hi]`
     (data.readers.LazyFrameStack decodes on slice). Returns the number of
-    frames written."""
+    frames written.
+
+    mesh: as compute_optical_flow's; each segment's pairs run over the
+    entries' replicas, the segment rounded up to a multiple of chunk *
+    entries."""
     net, dev = _prepare(net, compute_dtype, device)
     n = index.total_frames
     first, second = flow_pair_indices(index)
-    S = -(-segment_frames // chunk) * chunk
+    nets = _mesh_replicas(net, dev, mesh)
+    group = chunk * (len(nets) if nets is not None else 1)
+    S = -(-segment_frames // group) * group
 
     for lo in range(0, n, S):
         hi = min(lo + S, n)
         # pairs for frames [lo, hi) touch source frames [lo-1, hi]
         # (first frame of a video pairs (t, t), last pairs (t-1, t))
         w0, w1 = max(lo - 1, 0), min(hi + 1, n)
-        win = _to_device(np.asarray(frames[w0:w1]), dev)
-        flow = torch.empty((hi - lo,) + tuple(win.shape[1:3]) + (2,),
+        host = np.asarray(frames[w0:w1])
+        if nets is not None:
+            wins = _mesh_frames(host, nets)
+            batches = _run_pairs_mesh(nets, wins, first[lo:hi] - w0,
+                                      second[lo:hi] - w0, chunk, model_hw,
+                                      compute_dtype)
+        else:
+            wins = [_to_device(host, dev)]
+            batches = _run_pairs(net, wins[0], first[lo:hi] - w0,
+                                 second[lo:hi] - w0, chunk, model_hw,
+                                 compute_dtype)
+        flow = torch.empty((hi - lo,) + tuple(wins[0].shape[1:3]) + (2,),
                            dtype=torch.float32, device=dev)
-        for a, b, f in _run_pairs(net, win, first[lo:hi] - w0,
-                                  second[lo:hi] - w0, chunk, model_hw,
-                                  compute_dtype):
+        for a, b, f in batches:
             flow[a:b] = f
         flow = flow.cpu().numpy()
         for k in range(hi - lo):

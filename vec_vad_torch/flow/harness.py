@@ -24,6 +24,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from vec_vad_torch.device import full_f32
 from vec_vad_torch.flow.trainer import FlowTrainer
 from vec_vad_torch.models.flownet.ops import upsample_bilinear
 
@@ -88,12 +89,13 @@ class FlowHarness:
         batch size (main.py:394-516 is_validate branch)."""
         tr = self.trainer
         tot, n = 0.0, 0
-        for pairs, target in dataset.batches(batch_size, shuffle=False):
-            _, epe_v = tr.loss(tr.to_device(pairs), tr.to_device(target),
-                               mode=self.loss_mode, norm=self.norm)
-            b = pairs.shape[0]
-            tot += float(epe_v) * b
-            n += b
+        with full_f32():  # f32 nets: no TF32 in cuDNN's convolutions
+            for pairs, target in dataset.batches(batch_size, shuffle=False):
+                _, epe_v = tr.loss(tr.to_device(pairs), tr.to_device(target),
+                                   mode=self.loss_mode, norm=self.norm)
+                b = pairs.shape[0]
+                tot += float(epe_v) * b
+                n += b
         return tot / max(n, 1)
 
     # -- inference mode -----------------------------------------------------
@@ -127,7 +129,8 @@ class FlowHarness:
                 pairs = np.concatenate(
                     [pairs, np.repeat(pairs[-1:], batch_size - b, axis=0)]
                 )
-            out = net(tr.to_device(pairs), False)
+            with full_f32():  # f32 nets: no TF32 in cuDNN's convolutions
+                out = net(tr.to_device(pairs), False)
             if isinstance(out, (tuple, list)):
                 out = upsample_bilinear(
                     out[0] * getattr(net, "div_flow", 20.0), 4, True

@@ -16,41 +16,49 @@ import torch
 import torch.nn.functional as F
 
 
-def _batch_mean(x: torch.Tensor, sample_weight) -> torch.Tensor:
+def _batch_mean(x: torch.Tensor, sample_weight, weight_total=None) -> torch.Tensor:
     """Mean over all elements, or a weighted mean over the batch axis
-    (padded duplicate rows get weight 0)."""
+    (padded duplicate rows get weight 0). weight_total: what the weighted
+    sum is divided by when the rows are one mesh replica's share of a
+    batch (the whole batch's weight, at least 1); default the rows' own."""
     if sample_weight is None:
         return torch.mean(x)
     per = torch.mean(x, dim=tuple(range(1, x.dim())))
-    return torch.sum(per * sample_weight) / torch.clamp(
-        torch.sum(sample_weight), min=1.0
-    )
+    if weight_total is None:
+        weight_total = torch.clamp(torch.sum(sample_weight), min=1.0)
+    return torch.sum(per * sample_weight) / weight_total
 
 
-def epe(pred: torch.Tensor, target: torch.Tensor, sample_weight=None) -> torch.Tensor:
+def epe(pred: torch.Tensor, target: torch.Tensor, sample_weight=None,
+        weight_total=None) -> torch.Tensor:
     """Endpoint error: pred/target (B, H, W, 2)."""
     return _batch_mean(
-        torch.sqrt(torch.sum(torch.square(target - pred), dim=-1)), sample_weight
+        torch.sqrt(torch.sum(torch.square(target - pred), dim=-1)), sample_weight,
+        weight_total,
     )
 
 
-def l1_loss(pred: torch.Tensor, target: torch.Tensor, sample_weight=None) -> torch.Tensor:
-    return _batch_mean(torch.abs(pred - target), sample_weight)
+def l1_loss(pred: torch.Tensor, target: torch.Tensor, sample_weight=None,
+            weight_total=None) -> torch.Tensor:
+    return _batch_mean(torch.abs(pred - target), sample_weight, weight_total)
 
 
-def l2_loss(pred: torch.Tensor, target: torch.Tensor, sample_weight=None) -> torch.Tensor:
-    return epe(pred, target, sample_weight)  # reference "L2" = per-pixel norm mean
+def l2_loss(pred: torch.Tensor, target: torch.Tensor, sample_weight=None,
+            weight_total=None) -> torch.Tensor:
+    # reference "L2" = per-pixel norm mean
+    return epe(pred, target, sample_weight, weight_total)
 
 
 def single_scale_loss(
     flow: torch.Tensor, target: torch.Tensor, norm: str = "L1",
-    sample_weight=None,
+    sample_weight=None, weight_total=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, epe) pairing one fused full-res flow with the raw target —
     the reference's recipe for the FlowNet2/CS/CSS composites
     (main.py:194-197, losses.py:22-45)."""
     loss_fn = l1_loss if norm == "L1" else l2_loss
-    return loss_fn(flow, target, sample_weight), epe(flow, target, sample_weight)
+    return (loss_fn(flow, target, sample_weight, weight_total),
+            epe(flow, target, sample_weight, weight_total))
 
 
 def _avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -66,10 +74,12 @@ def multiscale_loss(
     norm: str = "L1",
     div_flow: float = 0.05,
     sample_weight=None,
+    weight_total=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, epe) over the (flow2..flow6) pyramid vs a full-res target.
 
-    sample_weight: optional (B,) per-sample weights (see _batch_mean)."""
+    sample_weight, weight_total: optional (B,) per-sample weights and the
+    divisor of their weighted sums (see _batch_mean)."""
     loss_fn = l1_loss if norm == "L1" else l2_loss
     target = div_flow * target
     loss = 0.0
@@ -77,6 +87,6 @@ def multiscale_loss(
     for i, pred in enumerate(flow_pyramid):
         w = l_weight / (2 ** i)
         t = _avg_pool(target, start_scale * (2 ** i))
-        loss = loss + w * loss_fn(pred, t, sample_weight)
-        epe_v = epe_v + w * epe(pred, t, sample_weight)
+        loss = loss + w * loss_fn(pred, t, sample_weight, weight_total)
+        epe_v = epe_v + w * epe(pred, t, sample_weight, weight_total)
     return loss, epe_v

@@ -306,7 +306,7 @@ def infer_frame_scores_grid(
 
     cfg = model.cfg
     mc = cfg.model
-    trainer = trainer or make_trainer(cfg, device)
+    trainer = trainer or make_trainer(cfg, device=device)
     use_flow = mc.use_flow and test_cubes.flow is not None
 
     cube_scores = np.full(test_cubes.size, big_number, dtype=np.float32)

@@ -23,6 +23,7 @@ predate it, and at momentum 0.1 it changes no output.
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List
 
 import torch
@@ -44,9 +45,12 @@ def load_flownet_checkpoint(net: nn.Module, path: str) -> Dict[str, List[str]]:
     """Merge a reference `.pth(.tar)` (a `state_dict` entry or a bare state
     dict) into `net` in place, partially: tensors the file lacks keep
     their current values, like vec_vad_tpu's convert_params(strict=False).
-    Returns {"matched": reference keys loaded, "missing": reference weight
-    keys the net wanted but the file lacks}; a tensor of another shape
-    than the net's raises."""
+    Returns {"matched": reference keys loaded, "missing": reference keys
+    of weights and of convolution biases (`<m>.<conv>.0.bias`) the net
+    wanted but the file lacks}; a tensor of another shape than the net's
+    raises. A with_bn net whose file carries no bias for a convolution
+    under a BatchNorm keeps that bias's current (random) values, as
+    vec_vad_tpu's converter does, and is warned."""
     # the file comes from outside the program: unpickle tensors, containers
     # and numbers only (the released checkpoints hold nothing else)
     blob = torch.load(path, map_location="cpu", weights_only=True)
@@ -58,7 +62,7 @@ def load_flownet_checkpoint(net: nn.Module, path: str) -> Dict[str, List[str]]:
                 continue
             ref = reference_key(key)
             if ref not in sd:
-                if key.endswith(".weight"):
+                if key.endswith(".weight") or ref.endswith(".0.bias"):
                     missing.append(ref)
                 continue
             value = torch.as_tensor(sd[ref])
@@ -69,4 +73,13 @@ def load_flownet_checkpoint(net: nn.Module, path: str) -> Dict[str, List[str]]:
                 )
             param.copy_(value)
             matched.append(ref)
+    bn_convs = {k[: -len(".bn.weight")] for k in net.state_dict()
+                if k.endswith(".bn.weight")}
+    unbiased = [reference_key(f"{m}.conv.bias") for m in sorted(bn_convs)
+                if reference_key(f"{m}.conv.bias") in missing]
+    if unbiased:
+        warnings.warn(
+            f"{path}: {len(unbiased)} BatchNorm convolutions of this with_bn "
+            f"net have no bias in the file (first: {unbiased[0]}); they keep "
+            "the net's random initial biases", stacklevel=2)
     return {"matched": matched, "missing": missing}

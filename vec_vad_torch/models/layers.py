@@ -20,6 +20,10 @@ replicates:
 A bf16 input (bf16 training, bf16 scoring) runs BatchNorm with the JAX
 package's bf16 cast points (`BatchNorm._forward_low_precision`).
 
+Inside a mesh step (parallel.mesh.run_replicas) each replica holds a
+share of the batch, and a train-mode BatchNorm takes its statistics over
+the whole batch, as JAX's SPMD step does (`BatchNorm._forward_mesh`).
+
 Parameters are created empty on `device`; weights come from
 models/convert.py or `init_completion_`.
 """
@@ -31,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vec_vad_torch.device import resolve_device
+from vec_vad_torch.parallel.mesh import all_reduce, in_mesh_step
 
 
 def _prefix(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -93,7 +98,11 @@ class BatchNorm(nn.Module):
 
     An input narrower than the layer (a grid step over its first blocks)
     uses and updates the first x.shape[1] channels' parameters and
-    running statistics only."""
+    running statistics only.
+
+    In train mode inside a mesh step the statistics are the whole batch's
+    over every replica's rows (_forward_mesh); a (B,) batch_weight then
+    marks this replica's rows."""
 
     def __init__(self, members, features, momentum=0.1, epsilon=1e-5,
                  device="cuda"):
@@ -112,6 +121,8 @@ class BatchNorm(nn.Module):
                                              self.running_mean, self.running_var))
 
     def forward(self, x, train: bool = False, batch_weight=None):
+        if train and in_mesh_step():
+            return self._forward_mesh(x, batch_weight)
         if x.dtype != torch.float32:
             return self._forward_low_precision(x, train, batch_weight)
         weight, bias, r_mean, r_var = self._params(x.shape[1])
@@ -158,6 +169,42 @@ class BatchNorm(nn.Module):
                 r_mean.mul_(1 - m).add_(m * mean.detach())
                 r_var.mul_(1 - m).add_(m * var_unbiased.detach())
         inv = torch.rsqrt(var + self.epsilon)
+        return ((x - mean[:, None, None]) * inv[:, None, None]
+                * weight[:, None, None] + bias[:, None, None])
+
+    def _forward_mesh(self, x, batch_weight):
+        """Train mode on a mesh: the weighted count and sum of x and then
+        the weighted sum of squared deviations from the global mean, each
+        summed over the replicas (parallel.mesh.all_reduce:
+        differentiable copies reduced in mesh order), so the mean and the
+        variance (the mean squared deviation, two passes as in JAX) are
+        the whole batch's and the gradient flows through them. The sums
+        run in f32 and the statistics come out in x's dtype (a bf16 x
+        keeps _forward_low_precision's cast points). The running
+        statistics update from the global values, equal on every
+        replica. No batch_weight weighs every row 1."""
+        B, C, H, W = x.shape
+        dt = x.dtype
+        weight, bias, r_mean, r_var = self._params(C)
+        w = (torch.ones(B, device=x.device) if batch_weight is None
+             else batch_weight.reshape(B).float())
+        wx = w.to(dt)[:, None, None, None]
+        s1 = torch.cat([(x * wx).float().sum(dim=(0, 2, 3)), (w.sum() * (H * W))[None]])
+        s1 = all_reduce(s1)
+        n = torch.clamp(s1[C], min=1.0)
+        n_x = n.to(dt)
+        mean = s1[:C].to(dt) / n_x
+        sq_dev = (wx * (x - mean[:, None, None]).square()).float().sum(dim=(0, 2, 3))
+        var = all_reduce(sq_dev).to(dt) / n_x
+        with torch.no_grad():
+            m = self.momentum
+            unbias = n / torch.clamp(n - 1.0, min=1.0)
+            r_mean.mul_(1 - m).add_(m * mean.float())
+            r_var.mul_(1 - m).add_(m * var.float() * unbias)
+        inv = torch.rsqrt(var + self.epsilon)
+        if dt == torch.float32:
+            return ((x - mean[:, None, None]) * (inv * weight)[:, None, None]
+                    + bias[:, None, None])
         return ((x - mean[:, None, None]) * inv[:, None, None]
                 * weight[:, None, None] + bias[:, None, None])
 

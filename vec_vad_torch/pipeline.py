@@ -428,17 +428,24 @@ def _rows(a, idx: np.ndarray):
     return a[idx]
 
 
-def make_trainer(cfg: PipelineConfig, device="cuda"):
+def make_trainer(cfg: PipelineConfig, mesh=None, device="cuda"):
+    """The BlockTrainer of `cfg` over `mesh` (a parallel.mesh.Mesh or a
+    list of devices), by default every visible card for device="cuda"
+    (parallel.mesh.get_mesh, as vec_vad_tpu's make_trainer takes every
+    device): one card on a machine with one, the CPU only when asked."""
+    from vec_vad_torch.parallel.mesh import get_mesh
     from vec_vad_torch.train.trainer import BlockTrainer
 
-    return BlockTrainer(cfg.model, cfg.fore.patch_size, device)
+    mesh = mesh if mesh is not None else get_mesh(device=device)
+    return BlockTrainer(cfg.model, cfg.fore.patch_size, mesh=mesh)
 
 
 def _grid_trainer(cfg: PipelineConfig, trainer):
-    """The grid trainer on `trainer`'s device."""
+    """The grid trainer on `trainer`'s device and mesh."""
     from vec_vad_torch.train.grid_trainer import GridTrainer
 
-    return GridTrainer(cfg.model, cfg.fore.patch_size, trainer.device)
+    return GridTrainer(cfg.model, cfg.fore.patch_size, trainer.device,
+                       mesh=trainer.mesh)
 
 
 def _is_uint8(a) -> bool:
@@ -475,7 +482,7 @@ def train_model(
             and len(eligible) > 1
             and all(v.size <= seg for v in eligible.values())
         )
-    trainer = trainer or make_trainer(cfg, device)
+    trainer = trainer or make_trainer(cfg, device=device)
     model = VadModel(cfg=cfg)
     if parallel_blocks and eligible:
         block_data = [(key, _rows(train_cubes.raw, idx), _rows(train_cubes.flow, idx))
@@ -527,7 +534,7 @@ def score_cubes(
     batch (GridTrainer.score_blocks), as the JAX package routes
     (vec_vad_tpu/pipeline.py:579-604)."""
     cfg = model.cfg
-    trainer = trainer or make_trainer(cfg, device)
+    trainer = trainer or make_trainer(cfg, device=device)
     mc = cfg.model
     scores = np.zeros(test_cubes.size, dtype=np.float64)
     groups = group_by_block(test_cubes)

@@ -30,8 +30,9 @@ converted Cascade R-CNN on `device`, fore.mmdet_detector) and
 `run_calc_flow` and `run_precompute_boxes` read frames through
 runtime.native_loader.make_frame_stack: the native decoder for
 .jpg/.png/.tif trees (JAX's calc-flow keeps cv2 there; the frames are the
-same), LazyFrameStack for .npy. Not ported (ROADMAP.md): calc-flow's
-mesh (item 5).
+same), LazyFrameStack for .npy. `run_calc_flow(use_mesh=True)` runs
+the flow nets over every visible card when there is more than one, as
+vec_vad_tpu does.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from vec_vad_torch.device import full_f32, resolve_device, resolve_dtype
 from vec_vad_torch.eval.metrics import pixel_level_roc, save_roc_pr_curve_data
 from vec_vad_torch.fore.detector import PrecomputedDetector, compute_foreground_bboxes
 from vec_vad_torch.models.flownet import load_flownet_checkpoint, make_flownet2
+from vec_vad_torch.parallel.mesh import get_mesh
 from vec_vad_torch.pipeline import (
     CubeSet,
     VadModel,
@@ -246,7 +248,7 @@ def run_train(
         data = load_split(cfg, base, "train", device=dev)
         cubes = _extract(cfg, base, "train", data, cfg.fore.train_block_mode,
                          resident, dev)
-        trainer = make_trainer(cfg, dev)
+        trainer = make_trainer(cfg, device=device)
         model = train_model(cfg, cubes, trainer=trainer, seed=seed,
                             log_every=log_every)
     path = model_path(cfg, base)
@@ -280,7 +282,7 @@ def run_test(
         data = load_split(cfg, base, "test", device=dev)
         cubes = _extract(cfg, base, "test", data, cfg.fore.test_block_mode,
                          resident, dev)
-        trainer = make_trainer(cfg, dev)
+        trainer = make_trainer(cfg, device=device)
         cube_scores = score_cubes(model, cubes, trainer=trainer)
     n = data.index.total_frames
     frame_scores = frame_level_scores(cube_scores, cubes, n)
@@ -368,6 +370,7 @@ def run_calc_flow(
     max_whole_split_frames: int = 512,
     flow_dtype: str = "float32",
     device="cuda",
+    use_mesh: bool = True,
 ) -> None:
     """Precompute the optical-flow tree with FlowNet2
     (calc_optical_flow.py equivalent) on `device`: the card unless the
@@ -386,7 +389,16 @@ def run_calc_flow(
     flow_dtype='bfloat16' runs the FlowNet forward in bf16 (.npy output
     stays f32) with the batch default bumped to 8 (chunk=None picks 4 for
     f32, 8 for bf16, as vec_vad_tpu does). Flow values shift by bf16
-    rounding; keep float32 where reference parity matters."""
+    rounding; keep float32 where reference parity matters.
+
+    use_mesh=True (default) runs the FlowNet forwards data-parallel over
+    get_mesh(device=device) when that mesh has more than one entry: every
+    visible card for a bare "cuda", while "cuda:k" and "cpu" name one
+    device (flow.driver's mesh route, one replica a card, the maps equal
+    the one-device run's). As in vec_vad_tpu the mesh rides the segmented
+    route and the resident whole-split route; a non-resident whole-split
+    run stays on the first card. use_mesh=False (`calc-flow --no-mesh`)
+    runs on `device` alone."""
     from vec_vad_torch.flow.driver import (
         compute_optical_flow,
         compute_optical_flow_segmented,
@@ -396,6 +408,12 @@ def run_calc_flow(
 
     dev = resolve_device(device)
     dtype = resolve_dtype(flow_dtype)
+    mesh = get_mesh(device=device) if use_mesh else None
+    if mesh is not None and mesh.size > 1:
+        dev = mesh.devices[0]
+        print(f"calc-flow: data-parallel over {mesh.size} devices")
+    else:
+        mesh = None
     chunk = chunk if chunk is not None else (
         8 if flow_dtype == "bfloat16" else 4
     )
@@ -426,7 +444,7 @@ def run_calc_flow(
                 write = flow_tree_writer(index, of_root, root)
                 compute_optical_flow_segmented(
                     net, index, lazy, write, segment_frames=seg, chunk=chunk,
-                    compute_dtype=dtype, device=dev,
+                    compute_dtype=dtype, device=dev, mesh=mesh,
                 )
                 print(
                     f"{split}: wrote {n} flow maps to {of_root} "
@@ -436,7 +454,7 @@ def run_calc_flow(
                 frames = np.asarray(lazy)
                 flow = compute_optical_flow(
                     net, index, frames, chunk=chunk, resident=resident,
-                    compute_dtype=dtype, device=dev,
+                    compute_dtype=dtype, device=dev, mesh=mesh,
                 )
                 save_flow_tree(flow, index, of_root, root)
                 print(f"{split}: wrote {flow.shape[0]} flow maps to {of_root}")

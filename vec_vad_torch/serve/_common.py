@@ -5,8 +5,9 @@ uses, and the fleet helpers.
 The JAX package's one-buffer weight packing (_pack_f32/_unflatten_f32/
 _download_f32_tree) has no counterpart here: it existed to marshal a
 pytree into a jitted call as one argument, while a torch module keeps its
-weights resident on the device between calls. Sharding a fleet over a
-device mesh (_shard_over_cameras, `mesh=`) is ROADMAP.md Queue 1 item 5's.
+weights resident on the device between calls. A fleet on a device mesh
+(`mesh=`) keeps one replica an entry (_fleet_replicas) in place of JAX's
+_shard_over_cameras.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from vec_vad_torch.device import resolve_device
+from vec_vad_torch.parallel.mesh import as_mesh
 
 
 def _predict_window(pos: int, ctx: int) -> np.ndarray:
@@ -80,8 +84,10 @@ def _time_device_chain(scorer, step, k: int, repeats: int) -> float:
     and swapped back in a `finally`: the scorer's serving state (rings,
     frame counters, pending results) is as it was, so a probe can run
     mid-video."""
-    rings = (scorer._ring, scorer._flow_ring)
-    scorer._ring, scorer._flow_ring = (r.clone() for r in rings)
+    reps = getattr(scorer, "_replicas", [scorer])
+    rings = [(r._ring, r._flow_ring) for r in reps]
+    for r, (ring, flow_ring) in zip(reps, rings):
+        r._ring, r._flow_ring = ring.clone(), flow_ring.clone()
     try:
         step()  # warm
         cuda = scorer._ring.device.type == "cuda"
@@ -104,20 +110,44 @@ def _time_device_chain(scorer, step, k: int, repeats: int) -> float:
             best = min(best, ms)
         return best
     finally:
-        scorer._ring, scorer._flow_ring = rings
+        for r, (ring, flow_ring) in zip(reps, rings):
+            r._ring, r._flow_ring = ring, flow_ring
 
 
-def _fleet_arity(n_cameras, mesh=None) -> int:
-    """The validated camera count C >= 1 of a fleet on one device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding a camera fleet over a device mesh is not ported "
-            "(ROADMAP.md Queue 1 item 5); serve the fleet on one device"
-        )
+def _fleet_arity(n_cameras, mesh) -> Tuple[int, int]:
+    """Validated (C, n_shards) for a camera fleet over an optional mesh
+    (parallel.mesh.Mesh or a list of devices)."""
     C = int(n_cameras)
     if C < 1:
         raise ValueError("n_cameras must be >= 1")
-    return C
+    n = as_mesh(mesh).size if mesh is not None else 1
+    if n > 1 and C % n:
+        raise ValueError(
+            f"n_cameras={C} must divide evenly over the {n}-device mesh"
+        )
+    return C, n
+
+
+def _fleet_device(mesh, kw: dict) -> None:
+    """A fleet on a mesh lives on the mesh's first entry: `device` in the
+    scorer's keywords set to it (or checked against it when given)."""
+    if mesh is None:
+        return
+    first = as_mesh(mesh).devices[0]
+    if "device" in kw and resolve_device(kw["device"]) != first:
+        raise ValueError(f"device={kw['device']!r} is not the mesh's first "
+                         f"entry {first}")
+    kw["device"] = first
+
+
+def _fleet_replicas(scorer, mesh, make) -> list:
+    """The scorers of a fleet's mesh entries, in mesh order: `scorer`
+    itself for the first, and for each other entry `make(device)`, a
+    fleet of the entry's C / n cameras with its own rings and its own
+    replica of the weights on that device (no mesh: [scorer])."""
+    if mesh is None:
+        return [scorer]
+    return [scorer] + [make(d) for d in as_mesh(mesh).devices[1:]]
 
 
 def _alloc_camera_rings(C: int, rlen: int, h: int, w: int, of_shape,

@@ -6,8 +6,15 @@ The JAX package scans the single-camera step over the camera axis
 frames into the (C, R, H, W, 3) ring, gathers every camera's window and
 runs ONE ensemble forward over the C*K cubes: eval-mode BatchNorm makes
 each row independent of the others, so the form changes the summation
-order of a batched convolution, not the result. Sharding the fleet over
-a device mesh (`mesh=`) is ROADMAP.md Queue 1 item 5's.
+order of a batched convolution, not the result.
+
+On a device mesh (`mesh=`, vec_vad_tpu's camera sharding) each of the n
+entries serves C / n cameras, contiguous in camera order: its own rings
+and its own replica of the weights on its device (the scorer itself for
+the first entry, a fleet of C / n cameras for each other,
+serve._common._fleet_replicas). A tick runs one forward an entry, the
+entries in mesh order, and gathers their scores on the first entry in
+camera order; the replicas never talk.
 """
 
 from __future__ import annotations
@@ -20,10 +27,13 @@ import torch
 from vec_vad_torch.serve._common import (
     _alloc_camera_rings,
     _fleet_arity,
+    _fleet_device,
+    _fleet_replicas,
     _host_result,
     _time_device_chain,
     _upload,
 )
+from vec_vad_torch.parallel.mesh import gather
 from vec_vad_torch.serve.streaming import StreamingScorer
 
 
@@ -52,20 +62,32 @@ class MultiCameraScorer(StreamingScorer):
 
     def __init__(self, cfg, state_dict=None, stats=None, *, n_cameras,
                  mesh=None, **kw):
-        """n_cameras: the fleet's C; mesh: not ported (ROADMAP.md Queue 1
-        item 5), anything but None raises."""
-        self.C = _fleet_arity(n_cameras, mesh)
+        """n_cameras: the fleet's C; mesh: a parallel.mesh.Mesh (or a list
+        of devices, a device may repeat) to serve the fleet over, C / n
+        cameras an entry (module docstring); C must divide over it. The
+        scorer lives on the mesh's first entry."""
+        self.C, n = _fleet_arity(n_cameras, mesh)
+        _fleet_device(mesh, kw)
         super().__init__(cfg, state_dict, stats, **kw)
+        self._Cs = self.C // n  # cameras an entry
         self._cam_v0 = np.zeros(self.C, np.int64)
         self._cam_scene = np.ones(self.C, np.int64)
         self._tick = 0
-        self._cams = torch.arange(self.C, device=self.device)[:, None]
+        self._cams = torch.arange(self._Cs, device=self.device)[:, None]
+        self._replicas = _fleet_replicas(self, mesh, lambda d: type(self)(
+            cfg, state_dict, stats, n_cameras=self._Cs, **{**kw, "device": d}))
+
+    def _entries(self):
+        """(scorer, camera slice) of each mesh entry, in mesh order."""
+        return [(rep, slice(i * self._Cs, (i + 1) * self._Cs))
+                for i, rep in enumerate(self._replicas)]
 
     def _ensure_rings(self, h: int, w: int) -> None:
-        if self._ring is None:
-            self._ring, self._flow_ring = _alloc_camera_rings(
-                self.C, self._rlen, h, w, (self.C, self.R_of, h, w, 2),
-                self.device)
+        for rep in self._replicas:
+            if rep._ring is None:
+                rep._ring, rep._flow_ring = _alloc_camera_rings(
+                    rep._Cs, rep._rlen, h, w, (rep._Cs, rep.R_of, h, w, 2),
+                    rep.device)
 
     # -- per-camera stream state ---------------------------------------
 
@@ -96,21 +118,35 @@ class MultiCameraScorer(StreamingScorer):
 
     # -- the fleet tick -------------------------------------------------
 
-    def _stage_tick(self, frames, flows, boxes_pad):
-        """One tick's host inputs on the device: (frames, flows or None,
-        slots, per-camera window indices (C, T) and (C, T_of), boxes)."""
-        pos = self._tick - self._cam_v0
+    def _stage_tick(self, frames, flows, boxes_pad, rep, cams: slice):
+        """One tick's host inputs for the cameras `cams` of one mesh entry,
+        on that entry's device (`rep`, its scorer): (frames, flows or
+        None, slots, per-camera window indices (c, T) and (c, T_of),
+        boxes)."""
+        v0 = self._cam_v0[cams]
+        pos = self._tick - v0
         win = np.stack([self._windows(p, v, self.ctx, self._rlen)
-                        for p, v in zip(pos, self._cam_v0)])
+                        for p, v in zip(pos, v0)])
         owin = np.stack([self._windows(p, v, self.ctx_of, self.R_of)
-                         for p, v in zip(pos, self._cam_v0)])
-        win_t, owin_t = self._indices((win, self._rlen), (owin, self.R_of))
+                         for p, v in zip(pos, v0)])
+        win_t, owin_t = rep._indices((win, self._rlen), (owin, self.R_of))
         flows_t = None
         if self.use_flow and flows is not None:
-            flows_t = _upload(np.asarray(flows, np.float32), self.device)
-        return (_upload(frames, self.device), flows_t, self._tick % self._rlen,
-                self._tick % self.R_of, win_t.reshape(self.C, -1),
-                owin_t.reshape(self.C, -1), _upload(boxes_pad, self.device))
+            flows_t = _upload(np.asarray(flows[cams], np.float32), rep.device)
+        return (_upload(frames[cams], rep.device), flows_t, self._tick % self._rlen,
+                self._tick % self.R_of, win_t.reshape(len(v0), -1),
+                owin_t.reshape(len(v0), -1), _upload(boxes_pad[cams], rep.device))
+
+    def _staged_ticks(self, frames, flows, boxes_pad):
+        """(entry scorer, its staged tick inputs) for every mesh entry."""
+        return [(rep, self._stage_tick(frames, flows, boxes_pad, rep, cams))
+                for rep, cams in self._entries()]
+
+    def _run_ticks(self, staged) -> torch.Tensor:
+        """Every entry's tick step on its staged inputs, the (C, B*K + K)
+        scores gathered on the first entry in camera order."""
+        outs = [rep._tick_step(*args) for rep, args in staged]
+        return outs[0] if len(outs) == 1 else gather(outs, self.device)
 
     def _tick_step(self, frames_t, flows_t, slot, of_slot, win_t, owin_t,
                    boxes_t) -> torch.Tensor:
@@ -151,7 +187,7 @@ class MultiCameraScorer(StreamingScorer):
         ago (None while the pipeline fills; drain() at stream end)."""
         frames, boxes_pad, nbs = self._norm_tick(frames, boxes_list)
         self._ensure_rings(*frames.shape[1:3])
-        outs = self._tick_step(*self._stage_tick(frames, flows, boxes_pad))
+        outs = self._run_ticks(self._staged_ticks(frames, flows, boxes_pad))
         self._tick += 1
         return self._emit_tick(outs, boxes_pad, nbs, self.use_flow and flows is None)
 
@@ -165,10 +201,10 @@ class MultiCameraScorer(StreamingScorer):
         frames, boxes_pad, _ = self._norm_tick(frames, boxes_list)
         self._ensure_rings(*frames.shape[1:3])
         zero = np.zeros(frames.shape[:3] + (2,), np.float32)
-        args = self._stage_tick(frames, zero if self.use_flow else None,
-                                boxes_pad)
+        staged = self._staged_ticks(frames, zero if self.use_flow else None,
+                                    boxes_pad)
         with torch.no_grad():
-            return _time_device_chain(self, lambda: self._tick_step(*args), k,
+            return _time_device_chain(self, lambda: self._run_ticks(staged), k,
                                       repeats)
 
     def _emit_tick(self, outs, boxes_pad, nbs, skip_mag=False):

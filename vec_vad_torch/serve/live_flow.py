@@ -24,11 +24,14 @@ batch, whose pair (f0, f1) is used by no frame) and then scores the
 batch's frames in one ensemble forward: one cost-volume launch a batch.
 `MultiCameraFlowScorer` does the same across a fleet: one FlowNet2
 forward over the C cameras' pairs and one ensemble forward over their
-C*K cubes a tick.
+C*K cubes a tick. On a device mesh (`mesh=`) each of the n entries runs
+both for its C / n cameras, on its own replicas of FlowNet2 and of the
+ensemble (serve.fleet's layout), so FlowNet2 runs at batch C / n an entry.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional
 
 import numpy as np
@@ -38,6 +41,8 @@ from vec_vad_torch.device import full_f32
 from vec_vad_torch.flow.driver import cast_flow_net, resize_bilinear
 from vec_vad_torch.serve._common import (
     _fleet_arity,
+    _fleet_device,
+    _fleet_replicas,
     _predict_window,
     _time_device_chain,
     _upload,
@@ -296,10 +301,18 @@ class MultiCameraFlowScorer(FlowStreamingScorer):
 
     def __init__(self, cfg, state_dict=None, stats=None, *, n_cameras,
                  mesh=None, **kw):
-        """n_cameras: the fleet's C; mesh: not ported (ROADMAP.md Queue 1
-        item 5), anything but None raises."""
-        self.C = _fleet_arity(n_cameras, mesh)
+        """n_cameras: the fleet's C; mesh: a parallel.mesh.Mesh (or a list
+        of devices) to serve the fleet over, C / n cameras an entry with
+        a FlowNet2 replica each (the given flow_net, on the first entry,
+        and a copy of it on every other); C must divide over it."""
+        self.C, n = _fleet_arity(n_cameras, mesh)
+        _fleet_device(mesh, kw)
         super().__init__(cfg, state_dict, stats, **kw)
+        self._Cs = self.C // n
+        flow_net = kw["flow_net"]
+        self._replicas = _fleet_replicas(self, mesh, lambda d: type(self)(
+            cfg, state_dict, stats, n_cameras=self._Cs,
+            **{**kw, "device": d, "flow_net": copy.deepcopy(flow_net).to(d)}))
         self._cam_scene = np.ones(self.C, np.int64)
         self._tick = 0
         self._tick_v0 = 0
@@ -334,16 +347,22 @@ class MultiCameraFlowScorer(FlowStreamingScorer):
             "MultiCameraFlowScorer times per tick; use time_device_tick"
         )
 
-    def _tick_args(self, tpos: int, slot: int, prev_slot: int):
-        """Host part of a live tick: identical slot math for every camera
-        (the fleet is tick-synchronised)."""
+    def _staged_ticks(self, frames, tpos: int, slot: int, prev_slot: int,
+                      boxes_pad):
+        """(entry scorer, its tick_step arguments) for every mesh entry:
+        its cameras' frames and boxes and the slot math, identical for
+        every camera (the fleet is tick-synchronised), on its device."""
         v0 = self._tick_v0
-        pair_t, win_t, owin_t = self._indices(
-            ((prev_slot, slot), self._rlen),
-            (self._windows(tpos, v0, self.ctx, self._rlen), self._rlen),
-            (self._windows(tpos, v0, self.ctx_of, self.R_of), self.R_of),
-        )
-        return (v0 + tpos) % self.R_of, pair_t, win_t, owin_t
+        groups = (((prev_slot, slot), self._rlen),
+                  (self._windows(tpos, v0, self.ctx, self._rlen), self._rlen),
+                  (self._windows(tpos, v0, self.ctx_of, self.R_of), self.R_of))
+        out = []
+        for rep, cams in self._entries():
+            pair_t, win_t, owin_t = rep._indices(*groups)
+            out.append((rep, (_upload(frames[cams], rep.device), slot,
+                              (v0 + tpos) % self.R_of, pair_t, win_t, owin_t,
+                              _upload(boxes_pad[cams], rep.device))))
+        return out
 
     def _tick_step(self, frames_t, slot, of_slot, pair_t, win_t, owin_t,
                    boxes_t) -> torch.Tensor:
@@ -367,21 +386,19 @@ class MultiCameraFlowScorer(FlowStreamingScorer):
         frames, boxes_pad, nbs = self._norm_tick(frames, boxes_list)
         self._ensure_rings(*frames.shape[1:3])
         slot = self._tick % self._rlen
-        frames_t = _upload(frames, self.device)
         outs = None
         if pos == 0:
             sb, snb = boxes_pad, nbs
             self._first_frames = frames
-            outs = self._tick_step(frames_t, slot, *self._tick_args(0, slot, slot),
-                                   _upload(sb, self.device))
+            outs = self._run_ticks(self._staged_ticks(frames, 0, slot, slot, sb))
         elif pos == 1:
-            self._ring[:, slot] = self._color(frames_t)
+            for rep, cams in self._entries():
+                rep._ring[:, slot] = rep._color(_upload(frames[cams], rep.device))
         else:
             _, sb, snb = self._last_tick
             prev = (self._tick - 1) % self._rlen
-            outs = self._tick_step(frames_t, slot,
-                                   *self._tick_args(pos - 1, slot, prev),
-                                   _upload(sb, self.device))
+            outs = self._run_ticks(
+                self._staged_ticks(frames, pos - 1, slot, prev, sb))
         self._tick += 1
         self._last_tick = (frames, boxes_pad, nbs)
         if outs is None:
@@ -399,11 +416,10 @@ class MultiCameraFlowScorer(FlowStreamingScorer):
         self._ensure_rings(*frames.shape[1:3])
         pos = max(self._tick - self._tick_v0, 2)
         slot = self._tick % self._rlen
-        args = (_upload(frames, self.device), slot,
-                *self._tick_args(pos - 1, slot, (self._tick - 1) % self._rlen),
-                _upload(boxes_pad, self.device))
+        staged = self._staged_ticks(frames, pos - 1, slot,
+                                    (self._tick - 1) % self._rlen, boxes_pad)
         with torch.no_grad():
-            return _time_device_chain(self, lambda: self._tick_step(*args), k,
+            return _time_device_chain(self, lambda: self._run_ticks(staged), k,
                                       repeats)
 
     @torch.no_grad()
@@ -425,13 +441,14 @@ class MultiCameraFlowScorer(FlowStreamingScorer):
             frames = self._last_tick[0]
             slot = g % self._rlen
             prev_slot = (g - 1) % self._rlen
-        outs = self._tick_step(_upload(frames, self.device), slot,
-                               *self._tick_args(n - 1, slot, prev_slot),
-                               _upload(boxes_pad, self.device))
+        outs = self._run_ticks(
+            self._staged_ticks(frames, n - 1, slot, prev_slot, boxes_pad))
         return self._emit_tick(outs, boxes_pad, nbs)
 
-    # the fleet's rings, tick inputs and result plumbing are the
-    # precomputed-flow fleet's
+    # the fleet's mesh entries, rings, tick inputs and result plumbing are
+    # the precomputed-flow fleet's
+    _entries = MultiCameraScorer._entries
+    _run_ticks = MultiCameraScorer._run_ticks
     _ensure_rings = MultiCameraScorer._ensure_rings
     _norm_tick = MultiCameraScorer._norm_tick
     _emit_tick = MultiCameraScorer._emit_tick

@@ -1,6 +1,6 @@
-"""The (scene, h, w) model-block grid on one device
-(vec_vad_tpu/train/grid_trainer.py): many independent blocks trained and
-scored together.
+"""The (scene, h, w) model-block grid (vec_vad_tpu/train/grid_trainer.py):
+many independent blocks trained and scored together, on one device or
+dealt over a device mesh.
 
 The reference trains the grid's blocks one after another
 (train.py:270-296) and scores them one at a time (test.py:277-348). The
@@ -37,6 +37,16 @@ BlockTrainer.loss; the training-score pass runs in f32.
 Activations grow with G: a call folds at most `max_blocks` blocks, the
 memory budget over one block's activation bytes (`block_bytes`), and runs
 the rest in further calls.
+
+On a device mesh (`mesh=`) the blocks are dealt over the entries in
+contiguous shares of block_data's order (parallel.mesh.shard_bounds, as
+JAX shards its G axis), and each entry folds and runs its own share's
+chunks on a GridTrainer of its own (its nets on its device); the entries'
+grid steps run in turn, step by step, and the replicas never talk, so
+every block's state and scores are its one-device ones. JAX pads G to a
+multiple of the mesh width with blocks that do nothing; here an entry
+with fewer blocks runs fewer, and one with none idles. Entries that share
+a device split its memory budget.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from vec_vad_torch.config import CompletionConfig
 from vec_vad_torch.device import full_f32, resolve_dtype
 from vec_vad_torch.infer import _forward_fn
 from vec_vad_torch.models.completion import SelfCompletionNet, make_completion_net
+from vec_vad_torch.parallel.mesh import as_mesh, shard_bounds
 from vec_vad_torch.pipeline import TrainedBlock
 from vec_vad_torch.train.trainer import BlockTrainer, Cubes, State, _quantize_u8
 
@@ -149,14 +160,28 @@ class _GridAdam:
 
 class GridTrainer:
     """Trains and scores many independent blocks folded into one network
-    on one device (module docstring)."""
+    on one device, or dealt over a device mesh (module docstring)."""
 
-    def __init__(self, cfg: CompletionConfig, patch_size: int = 32, device="cuda"):
+    def __init__(self, cfg: CompletionConfig, patch_size: int = 32, device="cuda",
+                 mesh=None):
+        """mesh: a parallel.mesh.Mesh (or a list of devices) to deal the
+        blocks over (module docstring); the trainer then lives on its
+        first entry. None: `device` alone."""
+        if mesh is not None:
+            mesh = as_mesh(mesh)
+            device = mesh.devices[0]
         self.solo = BlockTrainer(cfg, patch_size, device)
         self.cfg, self.patch_size = cfg, patch_size
         self.device = self.solo.device
         self.compute_dtype = self.solo.compute_dtype
         self._nets: Dict[int, SelfCompletionNet] = {}
+        self.mesh = mesh
+        self._sharing = 1  # mesh entries on this trainer's device
+        self._replicas = [self]
+        if mesh is not None and mesh.size > 1:
+            self._replicas += [GridTrainer(cfg, patch_size, d) for d in mesh.devices[1:]]
+            for rep in self._replicas:
+                rep._sharing = sum(d == rep.device for d in mesh.devices)
 
     def net(self, blocks: int) -> SelfCompletionNet:
         """The folded net of `blocks` blocks (built once per width)."""
@@ -188,6 +213,7 @@ class GridTrainer:
             budget = (torch.cuda.mem_get_info(self.device)[0] + held) / 2
         else:
             budget = _CPU_BUDGET
+        budget /= self._sharing
         return max(1, int(budget // self.block_bytes(rows, train)))
 
     # -- host-side orchestration ----------------------------------------------
@@ -213,6 +239,15 @@ class GridTrainer:
         cap = self.max_blocks(rows, train)
         return [[block_data[i] for i in order[lo: lo + cap]]
                 for lo in range(0, len(order), cap)]
+
+    def _shares(self, block_data: BlockData):
+        """(entry trainer, its share of block_data) of each mesh entry with
+        blocks, in mesh order (one entry: this trainer and every block)."""
+        if len(self._replicas) == 1:
+            return [(self, block_data)]
+        bounds = shard_bounds(len(block_data), self.mesh)
+        return [(rep, block_data[lo:hi]) for rep, (lo, hi)
+                in zip(self._replicas, bounds) if hi > lo]
 
     def _buffers(self, chunk: BlockData, n_max: int, has_flow: bool):
         """The chunk's cubes in one (G * n_max, P, P, C) uint8 device buffer,
@@ -248,8 +283,12 @@ class GridTrainer:
         state = init_state if init_state is not None else self.solo.init_state(seed)
         out = {}
         with full_f32():
-            for chunk in self._chunks(block_data, self.cfg.batch_size, train=True):
-                out.update(self._fit_chunk(chunk, state, seed, log_every, has_flow))
+            calls = [(rep, rep._chunks(share, self.cfg.batch_size, train=True))
+                     for rep, share in self._shares(block_data)]
+            for r in range(max(len(chunks) for _, chunks in calls)):
+                out.update(self._fit_chunks(
+                    [rep.prepare(chunks[r], state, seed, has_flow)
+                     for rep, chunks in calls if r < len(chunks)], log_every))
         return {key: out[key] for key, _, _ in block_data}
 
     def prepare(self, chunk: BlockData, state: State, seed: int = 0,
@@ -274,15 +313,24 @@ class GridTrainer:
         return _GridFit(self, chunk, counts, steps, net, adam, raw_buf, of_buf,
                         idx, wmask, has_flow)
 
-    def _fit_chunk(self, chunk: BlockData, state: State, seed: int, log_every: int,
-                   has_flow: bool) -> Dict[BlockKey, TrainedBlock]:
-        fit = self.prepare(chunk, state, seed, has_flow)
-        per_step = [fit.step(s) for s in range(len(fit.active))]
-        losses = fit.losses(per_step)
-        if log_every:
-            for s in range(0, losses.shape[0], max(1, log_every)):
-                print(f"grid step {s}: raw {losses[s, :, 1]}")
-        return fit.finish(losses)
+    @staticmethod
+    def _fit_chunks(fits: List["_GridFit"], log_every: int
+                    ) -> Dict[BlockKey, TrainedBlock]:
+        """Run prepared fits (one a mesh entry) to their ends, grid step s
+        of every fit before step s + 1 of any, and finish them."""
+        per_step: List[List[torch.Tensor]] = [[] for _ in fits]
+        for s in range(max(len(f.active) for f in fits)):
+            for f, ps in zip(fits, per_step):
+                if s < len(f.active):
+                    ps.append(f.step(s))
+        out = {}
+        for f, ps in zip(fits, per_step):
+            losses = f.losses(ps)
+            if log_every:
+                for s in range(0, losses.shape[0], max(1, log_every)):
+                    print(f"grid step {s}: raw {losses[s, :, 1]}")
+            out.update(f.finish(losses))
+        return out
 
     def block_losses(self, out, w: torch.Tensor) -> torch.Tensor:
         """(g, 3) (loss, loss_raw, loss_of) of each block: BlockTrainer.loss'
@@ -354,18 +402,23 @@ class GridTrainer:
         bsz = batch_size or self.cfg.batch_size
         out = {}
         with torch.no_grad(), full_f32(dtype):
-            for chunk in self._chunks(block_data, bsz, train=False):
-                counts = [raw.shape[0] for _, raw, _ in chunk]
-                raw_buf, of_buf = self._buffers(chunk, counts[0], has_flow)
-                names = blocks[chunk[0][0]].state_dict
-                stacked = {k: torch.cat([blocks[key].state_dict[k].to(self.device)
-                                         for key, _, _ in chunk]) for k in names}
-                forward = _forward_fn(self.net(len(chunk)), stacked, dtype)
-                sc = self._scores(forward, raw_buf, of_buf, counts, counts[0], bsz,
-                                  dtype)
-                for g, (key, _, _) in enumerate(chunk):
-                    out[key] = (sc[0, g, : counts[g]], sc[1, g, : counts[g]])
+            for rep, share in self._shares(block_data):
+                for chunk in rep._chunks(share, bsz, train=False):
+                    out.update(rep._score_chunk(blocks, chunk, bsz, dtype, has_flow))
         return {key: out[key] for key, _, _ in block_data}
+
+    def _score_chunk(self, blocks, chunk: BlockData, bsz: int, dtype: torch.dtype,
+                     has_flow: bool) -> Dict[BlockKey, Tuple[np.ndarray, np.ndarray]]:
+        """score_blocks' scores of one chunk, folded on this trainer's device."""
+        counts = [raw.shape[0] for _, raw, _ in chunk]
+        raw_buf, of_buf = self._buffers(chunk, counts[0], has_flow)
+        names = blocks[chunk[0][0]].state_dict
+        stacked = {k: torch.cat([blocks[key].state_dict[k].to(self.device)
+                                 for key, _, _ in chunk]) for k in names}
+        forward = _forward_fn(self.net(len(chunk)), stacked, dtype)
+        sc = self._scores(forward, raw_buf, of_buf, counts, counts[0], bsz, dtype)
+        return {key: (sc[0, g, : counts[g]], sc[1, g, : counts[g]])
+                for g, (key, _, _) in enumerate(chunk)}
 
 
 class _GridFit:

@@ -1,5 +1,6 @@
 """Per-block training of the completion ensemble
-(vec_vad_tpu/train/trainer.py:69-158, 159-651), sequentially on one device.
+(vec_vad_tpu/train/trainer.py:69-158, 159-651), on one device or data
+parallel over a device mesh.
 
 Reference semantics (train.py:240-437):
   * per (scene, h, w) block with >1 cubes: fresh model, Adam(lr=1e-3,
@@ -40,6 +41,21 @@ f32 whatever the compute dtype, as make_score_step does.
 Many blocks train together, folded into one network, in
 train/grid_trainer.py (GridTrainer), which reuses this trainer's init and
 schedule. `fit_block_budget` itemises a fit_block's wall by phase.
+
+On a device mesh of n > 1 entries (`mesh=`, vec_vad_tpu's data sharding)
+each entry holds a replica of the net and each step's batch (already
+wrap-padded to batch_size with its mask) is cut into n contiguous shares,
+as even as the batch allows (a batch the mesh does not divide is cut
+unevenly: JAX's sharded step takes it whole too). The replicas' forwards
+run in lockstep threads (parallel.mesh.run_replicas) whose BatchNorms
+take the whole batch's statistics; each replica's loss is its rows'
+weighted sum over the GLOBAL weight, and ONE backward runs over the sum
+of the replicas' losses (reduced onto the first entry in mesh order).
+The gradients are summed onto the first replica, Adam steps there, and
+its parameters and running statistics are copied to the others, so a
+step is the one-device step on the whole batch, as JAX's SPMD step is.
+Scoring cuts each batch's rows over the replicas and gathers the scores
+in order. A mesh of one entry runs the one-device code.
 """
 
 from __future__ import annotations
@@ -57,19 +73,34 @@ from vec_vad_torch.config import CompletionConfig
 from vec_vad_torch.device import full_f32, resolve_device, resolve_dtype
 from vec_vad_torch.models.completion import make_completion_net
 from vec_vad_torch.models.convert import completion_from_jax
+from vec_vad_torch.parallel.mesh import (
+    as_mesh,
+    copy_from_first,
+    gather,
+    reduce_grads_to_first,
+    reduce_to_first,
+    replicate,
+    run_replicas,
+    shard,
+)
 from vec_vad_torch.pipeline import TrainedBlock, to_device
 
 State = Dict[str, torch.Tensor]
 Cubes = Union[np.ndarray, torch.Tensor]
 
 
-def _masked_mean_sq(err: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _masked_mean_sq(err: torch.Tensor, w: torch.Tensor,
+                    w_total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean of err^2 over everything, weighting batch elements by w.
 
     err is (E, B, P, P, C); w is (B,). Equals torch MSELoss (mean) over the
-    unpadded batch when w is the 0/1 pad mask."""
+    unpadded batch when w is the 0/1 pad mask. w_total: the weight the
+    sum is divided by when the rows are one replica's share of a batch
+    (the whole batch's, at least 1); default w's own."""
     per_elem = err.square().mean(dim=(0, 2, 3, 4))  # (B,)
-    return (per_elem * w).sum() / torch.clamp(w.sum(), min=1.0)
+    if w_total is None:
+        w_total = torch.clamp(w.sum(), min=1.0)
+    return (per_elem * w).sum() / w_total
 
 
 def _cube_scores(err: torch.Tensor) -> torch.Tensor:
@@ -91,18 +122,30 @@ def _quantize_u8(raw):
 
 
 class BlockTrainer(nn.Module):
-    """Trains and scores completion-net blocks on one device: one net,
-    re-initialised for every block, and a fresh torch Adam per fit."""
+    """Trains and scores completion-net blocks on one device or over a
+    device mesh: one net, re-initialised for every block, and a fresh
+    torch Adam per fit."""
 
     def __init__(self, cfg: CompletionConfig, patch_size: int = 32,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        """mesh: a parallel.mesh.Mesh (or a list of devices, which may
+        repeat one) to train data-parallel over (module docstring); the
+        trainer then lives on its first entry. None or one entry: `device`."""
         super().__init__()
         self.cfg = cfg
         self.patch_size = patch_size
+        if mesh is not None:
+            mesh = as_mesh(mesh)
+            device = mesh.devices[0]
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.compute_dtype = resolve_dtype(cfg.compute_dtype)
         self.net = make_completion_net(cfg, self.device)
         self.opt: Optional[torch.optim.Adam] = None
+        # one net a mesh entry, self.net first (a plain list: the replicas
+        # are not submodules, so the state dict is the one net's)
+        self._replicas = (replicate(self.net, mesh)
+                          if mesh is not None and mesh.size > 1 else [self.net])
 
     # -- state --------------------------------------------------------------
 
@@ -138,6 +181,7 @@ class BlockTrainer(nn.Module):
         """Weights and running statistics into the net (strict)."""
         sd = state.state_dict if isinstance(state, TrainedBlock) else state
         self.net.load_state_dict(sd)
+        copy_from_first(self._replicas)
 
     def start_fit(self, state: State) -> None:
         """Load `state` and put a fresh Adam around it (optax's adam:
@@ -164,23 +208,30 @@ class BlockTrainer(nn.Module):
 
     def loss(self, x: torch.Tensor, x_of: Optional[torch.Tensor],
              w: torch.Tensor, batch_weight: Optional[torch.Tensor] = None,
+             net: Optional[nn.Module] = None,
+             w_total: Optional[torch.Tensor] = None,
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(loss, loss_raw, loss_of) of one batch (train-mode forward: it
         updates the BatchNorm running statistics). x_of: the batch's flow
         cubes, read only by a flow head; without one the loss is loss_raw
         and loss_of is 0. A bf16 compute dtype runs the forward on bf16
-        copies of the parameters and inputs (module docstring)."""
+        copies of the parameters and inputs (module docstring). net and
+        w_total: a mesh replica and the whole batch's weight, for one
+        replica's share of a batch (default: self.net, the batch's own)."""
         dt = self.compute_dtype
+        net = net if net is not None else self.net
         if dt == torch.float32:
-            out = self.net(x, x_of, True, batch_weight)
+            out = net(x, x_of, True, batch_weight)
         else:
-            params = {k: p.to(dt) for k, p in self.net.named_parameters()}
-            out = functional_call(self.net, params, (
+            params = {k: p.to(dt) for k, p in net.named_parameters()}
+            out = functional_call(net, params, (
                 x.to(dt), None if x_of is None else x_of.to(dt), True, batch_weight))
-        loss_raw = _masked_mean_sq((out.raw_out - out.raw_tgt.detach()).float(), w)
+        loss_raw = _masked_mean_sq((out.raw_out - out.raw_tgt.detach()).float(), w,
+                                   w_total)
         if out.of_out is None:
             return loss_raw, loss_raw, torch.zeros_like(loss_raw)
-        loss_of = _masked_mean_sq((out.of_out - out.of_tgt.detach()).float(), w)
+        loss_of = _masked_mean_sq((out.of_out - out.of_tgt.detach()).float(), w,
+                                  w_total)
         cfg = self.cfg
         return cfg.lambda_raw * loss_raw + cfg.lambda_of * loss_of, loss_raw, loss_of
 
@@ -188,11 +239,34 @@ class BlockTrainer(nn.Module):
                    w: torch.Tensor,
                    batch_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One Adam step on one batch (train.py:383-402); returns
-        (loss, loss_raw, loss_of) as one (3,) device tensor (no host sync)."""
+        (loss, loss_raw, loss_of) as one (3,) device tensor (no host sync).
+        On a mesh: the data-parallel step of the module docstring."""
+        if len(self._replicas) > 1:
+            return self._mesh_step(x, x_of, w, batch_weight)
         losses = self.loss(x, x_of, w, batch_weight)
         self.opt.zero_grad(set_to_none=True)
         losses[0].backward()
         self.opt.step()
+        return torch.stack(losses).detach()
+
+    def _mesh_step(self, x, x_of, w, batch_weight) -> torch.Tensor:
+        """train_step over the mesh: the batch's rows cut over the
+        replicas, their forwards in lockstep, one backward over the sum of
+        their losses, the gradients reduced onto the first replica, Adam
+        there, the weights copied out."""
+        mesh = self.mesh
+        xs, obs, ws, bws = (shard(t, mesh) for t in (x, x_of, w, batch_weight))
+        w_total = torch.clamp(w.sum(), min=1.0)
+        per = run_replicas([
+            (lambda i=i: self.loss(xs[i], obs[i], ws[i], bws[i], self._replicas[i],
+                                   w_total.to(mesh.devices[i])))
+            for i in range(mesh.size)], mesh)
+        losses = [reduce_to_first([p[k] for p in per], mesh) for k in range(3)]
+        self.opt.zero_grad(set_to_none=True)
+        losses[0].backward()
+        reduce_grads_to_first(self._replicas, mesh)
+        self.opt.step()
+        copy_from_first(self._replicas)
         return torch.stack(losses).detach()
 
     # -- host-side loops ----------------------------------------------------
@@ -397,13 +471,30 @@ class BlockTrainer(nn.Module):
         rows = torch.arange(n, device=self.device)
         with torch.no_grad():
             for lo in range(0, n, bsz):
-                o = self.net(self.as_float_input(buf[lo: lo + bsz]),
-                             self.flow_rows(of_buf, rows[lo: lo + bsz]))
-                out[0, lo: lo + bsz] = _cube_scores(o.raw_out - o.raw_tgt)
-                if o.of_out is not None:
-                    out[1, lo: lo + bsz] = _cube_scores(o.of_out - o.of_tgt)
+                out[:, lo: lo + bsz] = self._batch_scores(
+                    self.as_float_input(buf[lo: lo + bsz]),
+                    self.flow_rows(of_buf, rows[lo: lo + bsz]))
         raw, of = out.cpu().numpy()
         return raw, of
+
+    def _batch_scores(self, x: torch.Tensor,
+                      x_of: Optional[torch.Tensor]) -> torch.Tensor:
+        """(2, b) eval-mode (raw, of) scores of one batch on the device, its
+        rows cut over the mesh's replicas and gathered in order; of is 0
+        without a flow head."""
+        multi = len(self._replicas) > 1
+        xs = shard(x, self.mesh) if multi else [x]
+        obs = shard(x_of, self.mesh) if multi else [x_of]
+        parts = []
+        for net, xi, oi in zip(self._replicas, xs, obs):
+            o = net(xi, oi)
+            raw = _cube_scores(o.raw_out - o.raw_tgt)
+            of = (_cube_scores(o.of_out - o.of_tgt) if o.of_out is not None
+                  else torch.zeros_like(raw))
+            parts.append(torch.stack([raw, of]))
+        if len(parts) == 1:
+            return parts[0]
+        return gather([p.t() for p in parts], self.device).t()
 
     def score_block(
         self,
