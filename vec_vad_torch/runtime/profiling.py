@@ -1,11 +1,25 @@
-"""Tracing and stage timing (vec_vad_tpu/runtime/profiling.py).
+"""Spans and stage timing (vec_vad_tpu/runtime/profiling.py).
 
   * StageTimer — hierarchical wall-clock stage timing with a report table
     (host code, the JAX package's own);
-  * trace() — torch.profiler over a block, its trace written under
-    log_dir for TensorBoard or Perfetto (a no-op for None);
-  * annotate() — a named region (torch.profiler.record_function), so
-    pipeline stages show up by name inside a trace.
+  * annotate() — the port's spans: a named range,
+    `vec_vad_torch.<layer>.<span>`, inside any torch profiler that is
+    recording, and nothing but one flag check when none is.
+
+The spans sit where the work happens. Serving (serve/): `serve.tick`
+holds a whole `push_tick` (`push`, `push_many`, `end_video`, `drain`)
+and, inside it, `serve.stage` (host work and uploads before the first
+kernel), `serve.flow` (live FlowNet2 with its resizes), `serve.stc`
+(cube extraction), `serve.ensemble` (the completion nets and the score
+arithmetic), `serve.wait` (the host blocked on the result's download)
+and `serve.finish` (host score routing); the ring writes and window
+gathers are the tick's own. Training (`BlockTrainer.fit_block`):
+`train.fit` holds `train.init_state`, `train.upload`,
+`train.schedule_host`, `train.train_scan`, `train.score_pass` and
+`train.param_download`, fit_block_budget's phases. To see them, run
+any `torch.profiler.profile` around the calls: the spans are ranges on
+its host timeline, on the clock of its device activity, and appear in
+`key_averages()` and `export_chrome_trace()` under their names.
 """
 
 from __future__ import annotations
@@ -13,7 +27,13 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import OrderedDict
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Tuple
+
+import torch
+import torch.autograd.profiler as _torch_profiler
+
+SPAN_PREFIX = "vec_vad_torch."
+_NO_SPAN = contextlib.nullcontext()
 
 
 class StageTimer:
@@ -51,27 +71,18 @@ class StageTimer:
         return {k: (v, self.counts[k]) for k, v in self.totals.items()}
 
 
-@contextlib.contextmanager
-def trace(log_dir: Optional[str]) -> Iterator[None]:
-    """torch.profiler trace of the block, host and (on a card) device
-    activity, written under log_dir (no-op when log_dir is None)."""
-    if log_dir is None:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+def annotate(name: str):
+    """A context manager that makes the block the span
+    `vec_vad_torch.<name>` of a running torch profiler.
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region inside a trace."""
-    from torch.profiler import record_function
-
-    with record_function(name):
-        yield
+    With no profiler recording it is a shared null context: one read of
+    the flag torch sets when a profiler starts and clears when it stops,
+    no range, no CUDA event, no clock. While one records it is a
+    profiler range (`torch._C._profiler._RecordFunctionFast`, the
+    function scope torch's own operators take), timed on the profiler's
+    clock with the kernels. It is not a user annotation, so it adds no
+    device-side event of its own; a kernel belongs to the innermost span
+    that holds the runtime call that launched it."""
+    if not _torch_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)

@@ -20,6 +20,7 @@ import torch
 
 from vec_vad_torch.device import resolve_device
 from vec_vad_torch.parallel.mesh import as_mesh
+from vec_vad_torch.runtime.profiling import annotate
 
 
 def _predict_window(pos: int, ctx: int) -> np.ndarray:
@@ -64,7 +65,8 @@ def _host_result(handle) -> np.ndarray:
     queued after it."""
     host, event = handle
     if event is not None:
-        event.synchronize()
+        with annotate("serve.wait"):
+            event.synchronize()
     return host.numpy()
 
 

@@ -34,6 +34,7 @@ from vec_vad_torch.serve._common import (
     _upload,
 )
 from vec_vad_torch.parallel.mesh import gather
+from vec_vad_torch.runtime.profiling import annotate
 from vec_vad_torch.serve.streaming import StreamingScorer
 
 
@@ -185,11 +186,15 @@ class MultiCameraScorer(StreamingScorer):
         Returns the C frame scores (ordered by camera); with
         pipeline_depth=d, returns the scores of the tick pushed d calls
         ago (None while the pipeline fills; drain() at stream end)."""
-        frames, boxes_pad, nbs = self._norm_tick(frames, boxes_list)
-        self._ensure_rings(*frames.shape[1:3])
-        outs = self._run_ticks(self._staged_ticks(frames, flows, boxes_pad))
-        self._tick += 1
-        return self._emit_tick(outs, boxes_pad, nbs, self.use_flow and flows is None)
+        with annotate("serve.tick"):
+            with annotate("serve.stage"):
+                frames, boxes_pad, nbs = self._norm_tick(frames, boxes_list)
+                self._ensure_rings(*frames.shape[1:3])
+                staged = self._staged_ticks(frames, flows, boxes_pad)
+            outs = self._run_ticks(staged)
+            self._tick += 1
+            return self._emit_tick(outs, boxes_pad, nbs,
+                                   self.use_flow and flows is None)
 
     def time_device_tick(self, frames: np.ndarray, boxes_list,
                          k: int = 32, repeats: int = 3) -> float:
@@ -218,15 +223,17 @@ class MultiCameraScorer(StreamingScorer):
 
     def drain(self) -> List[List[float]]:
         """Materialize the tick scores still in flight (stream end)."""
-        out = [self._finish_tick(*e) for e in self._pending]
+        with annotate("serve.tick"):
+            out = [self._finish_tick(*e) for e in self._pending]
         self._pending.clear()
         return out
 
     def _finish_tick(self, handle, boxes_pad, nbs, scenes,
                      skip_mag) -> List[float]:
         outs = _host_result(handle)  # ONE download for the whole tick
-        return [
-            self._finish_host(outs[c], boxes_pad[c], nbs[c], int(scenes[c]),
-                              skip_mag)
-            for c in range(self.C)
-        ]
+        with annotate("serve.finish"):
+            return [
+                self._finish_host(outs[c], boxes_pad[c], nbs[c], int(scenes[c]),
+                                  skip_mag)
+                for c in range(self.C)
+            ]

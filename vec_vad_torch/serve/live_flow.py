@@ -39,6 +39,7 @@ import torch
 
 from vec_vad_torch.device import full_f32
 from vec_vad_torch.flow.driver import cast_flow_net, resize_bilinear
+from vec_vad_torch.runtime.profiling import annotate
 from vec_vad_torch.serve._common import (
     _fleet_arity,
     _fleet_device,
@@ -94,10 +95,11 @@ class FlowStreamingScorer(StreamingScorer):
         """(n, 2, H, W, 3) uint8 frame pairs -> (n, H, W, 2) float32 flow
         in one FlowNet2 forward, by calc-flow's protocol (flow/driver.py
         _flow_batch): cv2-parity resize to the model size, forward, resize
-        back WITHOUT rescaling; an f32 route runs with TF32 off."""
+        back WITHOUT rescaling; an f32 route runs with TF32 off. The
+        `serve.flow` span."""
         n, _, H, W, _ = pairs.shape
         mh, mw = self._flow_hw
-        with full_f32(self._flow_dtype):
+        with annotate("serve.flow"), full_f32(self._flow_dtype):
             pr = resize_bilinear(pairs.reshape((2 * n,) + pairs.shape[2:]), mh, mw)
             pr = pr.to(self._flow_dtype).reshape(n, 2, mh, mw, 3)
             return resize_bilinear(self.flow_net(pr).float(), H, W)
@@ -141,33 +143,36 @@ class FlowStreamingScorer(StreamingScorer):
         fills)."""
         if self._video_closed:
             raise ValueError("call start_video() first")
-        pos = self._n_pushed - self._v0
-        frame = self._norm_frame(frame)
-        boxes_pad, nb = self._pad_boxes(boxes)
-        self._ensure_rings(*frame.shape[:2])
-        slot = self._n_pushed % self._rlen
-        frame_t = _upload(frame, self.device)
-        out = None
-        if pos == 0:
-            # frame 0's pair is (f0, f0): score it in the same push
-            sb, snb = boxes_pad, nb
-            self._first = frame
-            out = self._flow_step(frame_t, slot, *self._flow_args(0, slot, slot),
-                                  _upload(sb, self.device))
-        elif pos == 1:
-            # flow(0 -> 1) is used by no frame: only advance the ring
-            self._write_frame(slot, frame_t)
-        else:
-            _, sb, snb = self._last
-            prev = (self._n_pushed - 1) % self._rlen
-            out = self._flow_step(frame_t, slot,
-                                  *self._flow_args(pos - 1, slot, prev),
-                                  _upload(sb, self.device))
-        self._n_pushed += 1
-        self._last = (frame, boxes_pad, nb)
-        if out is None:
-            return None  # nothing emitted: frame 1 waits for f_2
-        return self._emit(out, sb, snb)
+        with annotate("serve.tick"):
+            pos = self._n_pushed - self._v0
+            slot = self._n_pushed % self._rlen
+            with annotate("serve.stage"):
+                frame = self._norm_frame(frame)
+                boxes_pad, nb = self._pad_boxes(boxes)
+                self._ensure_rings(*frame.shape[:2])
+                frame_t = _upload(frame, self.device)
+                if pos == 0:
+                    # frame 0's pair is (f0, f0): score it in the same push
+                    sb, snb = boxes_pad, nb
+                    self._first = frame
+                    args = self._flow_args(0, slot, slot)
+                elif pos >= 2:
+                    _, sb, snb = self._last
+                    prev = (self._n_pushed - 1) % self._rlen
+                    args = self._flow_args(pos - 1, slot, prev)
+                if pos != 1:
+                    boxes_t = _upload(sb, self.device)
+            out = None
+            if pos == 1:
+                # flow(0 -> 1) is used by no frame: only advance the ring
+                self._write_frame(slot, frame_t)
+            else:
+                out = self._flow_step(frame_t, slot, *args, boxes_t)
+            self._n_pushed += 1
+            self._last = (frame, boxes_pad, nb)
+            if out is None:
+                return None  # nothing emitted: frame 1 waits for f_2
+            return self._emit(out, sb, snb)
 
     @torch.no_grad()
     def push_many(self, frames, boxes_list) -> List[float]:
@@ -181,59 +186,65 @@ class FlowStreamingScorer(StreamingScorer):
         ensemble forward (module docstring)."""
         if self._video_closed:
             raise ValueError("call start_video() first")
-        frames = self._norm_frames(frames)
-        k = frames.shape[0]
-        if k == 0:
-            return []
-        self._ensure_rings(*frames.shape[1:3])
-        n0, rlen, v0 = self._n_pushed, self._rlen, self._v0
+        with annotate("serve.tick"):
+            with annotate("serve.stage"):
+                frames = self._norm_frames(frames)
+                k = frames.shape[0]
+                if k == 0:
+                    return []
+                self._ensure_rings(*frames.shape[1:3])
+                n0, rlen, v0 = self._n_pushed, self._rlen, self._v0
 
-        def staged(g):  # global frame -> slot of (ring, then the batch)
-            return np.where(g >= n0, rlen + g - n0, g % rlen)
+                def staged(g):  # global frame -> slot of (ring, then the batch)
+                    return np.where(g >= n0, rlen + g - n0, g % rlen)
 
-        live = []  # (pair's global frames, tpos, boxes_pad, nb) per scored frame
-        prev = self._last
-        for j in range(k):
-            g, pos = n0 + j, n0 + j - v0
-            bp, nb = self._pad_boxes(boxes_list[j])
-            if pos == 0:
-                self._first = frames[j]
-                live.append(((g, g), 0, bp, nb))
-            elif pos >= 2:  # pos 1's pair (f0, f1) is used by no frame
-                live.append(((g - 1, g), pos - 1, prev[1], prev[2]))
-            prev = (frames[j], bp, nb)
-        self._last = prev
+                live = []  # (pair's global frames, tpos, boxes_pad, nb) per scored frame
+                prev = self._last
+                for j in range(k):
+                    g, pos = n0 + j, n0 + j - v0
+                    bp, nb = self._pad_boxes(boxes_list[j])
+                    if pos == 0:
+                        self._first = frames[j]
+                        live.append(((g, g), 0, bp, nb))
+                    elif pos >= 2:  # pos 1's pair (f0, f1) is used by no frame
+                        live.append(((g - 1, g), pos - 1, prev[1], prev[2]))
+                    prev = (frames[j], bp, nb)
+                self._last = prev
 
-        frames_t = self._color(_upload(frames, self.device))
-        glob = n0 + np.arange(k)
-        outs = None
-        if live:
-            n = len(live)
-            tpos = np.array([t for _, t, _, _ in live])
-            t0 = v0 + tpos[0]  # scored frames are consecutive from t0
-            win = np.stack([v0 + _predict_window(t, self.ctx) for t in tpos])
-            owin = np.stack([v0 + _predict_window(t, self.ctx_of) for t in tpos])
-            ostaged = np.where(owin >= t0, self.R_of + owin - t0, owin % self.R_of)
-            pair_t, win_t, owin_t, okeep_t = self._indices(
-                (staged(np.array([p for p, _, _, _ in live])), rlen + k),
-                (staged(win), rlen + k), (ostaged, self.R_of + n),
-                ((v0 + tpos[-self.R_of:]) % self.R_of, self.R_of),
-            )
-            src = torch.cat([self._ring, frames_t])
-            flows = self._live_flow(
-                src.index_select(0, pair_t).reshape((n, 2) + src.shape[1:]))
-            fsrc = torch.cat([self._flow_ring, flows])
-            wd = src.index_select(0, win_t).reshape((n, -1) + src.shape[1:])
-            owd = fsrc.index_select(0, owin_t).reshape((n, -1) + fsrc.shape[1:])
-            boxes = np.stack([bp for _, _, bp, _ in live])
-            outs = self._score_windows(wd, owd, _upload(boxes, self.device))
-            self._flow_ring[okeep_t] = flows[-self.R_of:]
-        (keep_t,) = self._indices((glob[-rlen:] % rlen, rlen))
-        self._ring[keep_t] = frames_t[-rlen:]
-        self._n_pushed += k
-        if outs is None:
-            return []
-        return self._emit_rows(outs, [(bp, nb, False) for _, _, bp, nb in live])
+                frames_t = self._color(_upload(frames, self.device))
+                glob = n0 + np.arange(k)
+                if live:
+                    n = len(live)
+                    tpos = np.array([t for _, t, _, _ in live])
+                    t0 = v0 + tpos[0]  # scored frames are consecutive from t0
+                    win = np.stack([v0 + _predict_window(t, self.ctx) for t in tpos])
+                    owin = np.stack([v0 + _predict_window(t, self.ctx_of)
+                                     for t in tpos])
+                    ostaged = np.where(owin >= t0, self.R_of + owin - t0,
+                                       owin % self.R_of)
+                    pair_t, win_t, owin_t, okeep_t = self._indices(
+                        (staged(np.array([p for p, _, _, _ in live])), rlen + k),
+                        (staged(win), rlen + k), (ostaged, self.R_of + n),
+                        ((v0 + tpos[-self.R_of:]) % self.R_of, self.R_of),
+                    )
+                    boxes_t = _upload(np.stack([bp for _, _, bp, _ in live]),
+                                      self.device)
+                (keep_t,) = self._indices((glob[-rlen:] % rlen, rlen))
+            outs = None
+            if live:
+                src = torch.cat([self._ring, frames_t])
+                flows = self._live_flow(
+                    src.index_select(0, pair_t).reshape((n, 2) + src.shape[1:]))
+                fsrc = torch.cat([self._flow_ring, flows])
+                wd = src.index_select(0, win_t).reshape((n, -1) + src.shape[1:])
+                owd = fsrc.index_select(0, owin_t).reshape((n, -1) + fsrc.shape[1:])
+                outs = self._score_windows(wd, owd, boxes_t)
+                self._flow_ring[okeep_t] = flows[-self.R_of:]
+            self._ring[keep_t] = frames_t[-rlen:]
+            self._n_pushed += k
+            if outs is None:
+                return []
+            return self._emit_rows(outs, [(bp, nb, False) for _, _, bp, nb in live])
 
     def time_device_step(self, frame: np.ndarray, boxes: np.ndarray,
                          k: int = 16, repeats: int = 3) -> float:
@@ -278,10 +289,12 @@ class FlowStreamingScorer(StreamingScorer):
             frame = self._last[0]
             slot = g % self._rlen
             prev_slot = (g - 1) % self._rlen
-        out = self._flow_step(_upload(frame, self.device), slot,
-                              *self._flow_args(n - 1, slot, prev_slot),
-                              _upload(boxes_pad, self.device))
-        return self._emit(out, boxes_pad, nb)
+        with annotate("serve.tick"):
+            with annotate("serve.stage"):
+                args = (_upload(frame, self.device), slot,
+                        *self._flow_args(n - 1, slot, prev_slot),
+                        _upload(boxes_pad, self.device))
+            return self._emit(self._flow_step(*args), boxes_pad, nb)
 
 
 class MultiCameraFlowScorer(FlowStreamingScorer):
@@ -382,28 +395,35 @@ class MultiCameraFlowScorer(FlowStreamingScorer):
         pipeline_depth fills)."""
         if self._video_closed:
             raise ValueError("call start_video() first")
-        pos = self._tick - self._tick_v0
-        frames, boxes_pad, nbs = self._norm_tick(frames, boxes_list)
-        self._ensure_rings(*frames.shape[1:3])
-        slot = self._tick % self._rlen
-        outs = None
-        if pos == 0:
-            sb, snb = boxes_pad, nbs
-            self._first_frames = frames
-            outs = self._run_ticks(self._staged_ticks(frames, 0, slot, slot, sb))
-        elif pos == 1:
-            for rep, cams in self._entries():
-                rep._ring[:, slot] = rep._color(_upload(frames[cams], rep.device))
-        else:
-            _, sb, snb = self._last_tick
-            prev = (self._tick - 1) % self._rlen
-            outs = self._run_ticks(
-                self._staged_ticks(frames, pos - 1, slot, prev, sb))
-        self._tick += 1
-        self._last_tick = (frames, boxes_pad, nbs)
-        if outs is None:
-            return None
-        return self._emit_tick(outs, sb, snb)
+        with annotate("serve.tick"):
+            pos = self._tick - self._tick_v0
+            slot = self._tick % self._rlen
+            with annotate("serve.stage"):
+                frames, boxes_pad, nbs = self._norm_tick(frames, boxes_list)
+                self._ensure_rings(*frames.shape[1:3])
+                if pos == 0:
+                    sb, snb = boxes_pad, nbs
+                    self._first_frames = frames
+                    staged = self._staged_ticks(frames, 0, slot, slot, sb)
+                elif pos == 1:
+                    staged = [(rep, _upload(frames[cams], rep.device))
+                              for rep, cams in self._entries()]
+                else:
+                    _, sb, snb = self._last_tick
+                    prev = (self._tick - 1) % self._rlen
+                    staged = self._staged_ticks(frames, pos - 1, slot, prev, sb)
+            outs = None
+            if pos == 1:
+                # flow(0 -> 1) is used by no frame: only advance the rings
+                for rep, frames_t in staged:
+                    rep._ring[:, slot] = rep._color(frames_t)
+            else:
+                outs = self._run_ticks(staged)
+            self._tick += 1
+            self._last_tick = (frames, boxes_pad, nbs)
+            if outs is None:
+                return None
+            return self._emit_tick(outs, sb, snb)
 
     def time_device_tick(self, frames, boxes_list, k: int = 8,
                          repeats: int = 3) -> float:
@@ -441,9 +461,11 @@ class MultiCameraFlowScorer(FlowStreamingScorer):
             frames = self._last_tick[0]
             slot = g % self._rlen
             prev_slot = (g - 1) % self._rlen
-        outs = self._run_ticks(
-            self._staged_ticks(frames, n - 1, slot, prev_slot, boxes_pad))
-        return self._emit_tick(outs, boxes_pad, nbs)
+        with annotate("serve.tick"):
+            with annotate("serve.stage"):
+                staged = self._staged_ticks(frames, n - 1, slot, prev_slot,
+                                            boxes_pad)
+            return self._emit_tick(self._run_ticks(staged), boxes_pad, nbs)
 
     # the fleet's mesh entries, rings, tick inputs and result plumbing are
     # the precomputed-flow fleet's

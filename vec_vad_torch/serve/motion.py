@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from vec_vad_torch.fore.motion import motion_bboxes, motion_maps
+from vec_vad_torch.runtime.profiling import annotate
 from vec_vad_torch.serve._common import (
     _download_async,
     _host_result,
@@ -170,33 +171,34 @@ class MotionStreamingScorer(StreamingScorer):
         in StreamingScorer.push."""
         if self._video_closed:
             raise ValueError("call start_video() first")
-        frame = self._norm_frame(frame)
-        self._ensure_rings(*frame.shape[:2])
-        pos = self._n_pushed - self._v0
-        self._apq[pos] = (
-            np.zeros((0, 4), np.float32)
-            if ap_boxes is None
-            else np.asarray(ap_boxes, np.float32).reshape(-1, 4)
-        )
-        # harvest the previous step FIRST: its map (frame pos-1) gives
-        # boxes a later push scores with, and the harvest at push pos-1
-        # gave the boxes of frame pos-2, which this push scores
-        ret = None
-        while self._flight:
-            r = self._harvest(self._flight.popleft())
-            if r is not None:
-                ret = r
-        flow_t = None
-        if self._streams_flow:
-            self._skipq[pos] = flow is None
-            if flow is not None:
-                flow_t = _upload(np.asarray(flow, np.float32), self.device)
-        frame_t = _upload(frame, self.device)
-        self._dispatch(frame_t, flow_t, pos, scored=pos - 2, mapped=pos - 1,
-                       tail_hint=None)
-        self._n_pushed += 1
-        self._last_push = (frame_t, flow_t)
-        return ret
+        with annotate("serve.tick"):
+            frame = self._norm_frame(frame)
+            self._ensure_rings(*frame.shape[:2])
+            pos = self._n_pushed - self._v0
+            self._apq[pos] = (
+                np.zeros((0, 4), np.float32)
+                if ap_boxes is None
+                else np.asarray(ap_boxes, np.float32).reshape(-1, 4)
+            )
+            # harvest the previous step FIRST: its map (frame pos-1) gives
+            # boxes a later push scores with, and the harvest at push pos-1
+            # gave the boxes of frame pos-2, which this push scores
+            ret = None
+            while self._flight:
+                r = self._harvest(self._flight.popleft())
+                if r is not None:
+                    ret = r
+            flow_t = None
+            if self._streams_flow:
+                self._skipq[pos] = flow is None
+                if flow is not None:
+                    flow_t = _upload(np.asarray(flow, np.float32), self.device)
+            frame_t = _upload(frame, self.device)
+            self._dispatch(frame_t, flow_t, pos, scored=pos - 2, mapped=pos - 1,
+                           tail_hint=None)
+            self._n_pushed += 1
+            self._last_push = (frame_t, flow_t)
+            return ret
 
     @torch.no_grad()
     def end_video(self) -> List[float]:
@@ -210,25 +212,26 @@ class MotionStreamingScorer(StreamingScorer):
         n = self._n_pushed - self._v0
         if n == 0:
             return []
-        emits: List[float] = []
-        while self._flight:
-            r = self._harvest(self._flight.popleft())
-            if r is not None:
-                emits.append(r)
-        frame_t, flow_t = self._last_push
-        for t in range(max(n - 2, 0), n):
-            if t not in self._boxq:
-                # map-only step for t with its tail-clamped window
-                self._dispatch(frame_t, flow_t, n - 1, scored=-1, mapped=t,
+        with annotate("serve.tick"):
+            emits: List[float] = []
+            while self._flight:
+                r = self._harvest(self._flight.popleft())
+                if r is not None:
+                    emits.append(r)
+            frame_t, flow_t = self._last_push
+            for t in range(max(n - 2, 0), n):
+                if t not in self._boxq:
+                    # map-only step for t with its tail-clamped window
+                    self._dispatch(frame_t, flow_t, n - 1, scored=-1, mapped=t,
+                                   tail_hint=n)
+                    self._harvest(self._flight.popleft())
+                nxt = t + 1 if (t + 1 < n and t + 1 not in self._boxq) else -1
+                self._dispatch(frame_t, flow_t, n - 1, scored=t, mapped=nxt,
                                tail_hint=n)
-                self._harvest(self._flight.popleft())
-            nxt = t + 1 if (t + 1 < n and t + 1 not in self._boxq) else -1
-            self._dispatch(frame_t, flow_t, n - 1, scored=t, mapped=nxt,
-                           tail_hint=n)
-            r = self._harvest(self._flight.popleft())
-            assert r is not None
-            emits.append(r)
-        return emits
+                r = self._harvest(self._flight.popleft())
+                assert r is not None
+                emits.append(r)
+            return emits
 
     def drain(self) -> List[float]:
         """The flush; prefer end_video()."""

@@ -33,6 +33,7 @@ from vec_vad_torch.device import full_f32, resolve_device, resolve_dtype
 from vec_vad_torch.infer import _forward_fn
 from vec_vad_torch.models.completion import make_completion_net
 from vec_vad_torch.ops.stc import cube_to_input, extract_stc, flow_magnitude
+from vec_vad_torch.runtime.profiling import annotate
 from vec_vad_torch.score.scoring import BIG_NUMBER, degenerate_boxes
 from vec_vad_torch.serve._common import (
     _download_async,
@@ -199,38 +200,40 @@ class StreamingScorer:
         frame its block scores, then its boxes' motion magnitudes (inf
         when no flow stream is served). wd: (k, T, H, W, 3) uint8; owd:
         (k, T_of, H, W, 2) float32 (None for a raw-only model); boxes:
-        (k, K, 4). One ensemble forward per block over the k*K cubes
-        (eval-mode BatchNorm: no row depends on another)."""
+        (k, K, 4). Cube extraction is the `serve.stc` span; one ensemble
+        forward per block over the k*K cubes (eval-mode BatchNorm: no row
+        depends on another) and the score arithmetic, `serve.ensemble`."""
         P, K, dt = self.P, self.K, self.compute_dtype
         k = wd.shape[0]
         mc = self.cfg.model
         with full_f32(dt):
-            cubes = extract_stc(wd, boxes, P, quantize=True)  # (k, K, T, P, P, 3)
-            # uint8 round trip: bit-identical to the offline uint8 cube buffer
-            x = cube_to_input(cubes, scale=False).to(torch.uint8).to(dt) / 255.0
-            x = x.reshape((k * K,) + x.shape[2:])
-            if self.use_flow:
-                fcubes = extract_stc(owd, boxes, P, quantize=False)
-                mag = flow_magnitude(fcubes)  # (k, K)
-                x_of = cube_to_input(fcubes, scale=False).to(dt)
-                x_of = x_of.reshape((k * K,) + x_of.shape[2:])
-            else:
-                mag = torch.full((k, K), float("inf"), device=self.device)
-                x_of = None
-
-            scores = []
-            for forward, st in zip(self._forwards, self._stats):
-                out = forward(x, x_of)
-                sc = (out.raw_out - out.raw_tgt).float().square().sum(
-                    dim=(0, 2, 3, 4))
-                score = mc.w_raw * (sc - st[0]) / st[1]
-                if out.of_out is not None:
-                    osc = (out.of_out - out.of_tgt).float().square().sum(
+            with annotate("serve.stc"):
+                cubes = extract_stc(wd, boxes, P, quantize=True)  # (k, K, T, P, P, 3)
+                # uint8 round trip: bit-identical to the offline uint8 cube buffer
+                x = cube_to_input(cubes, scale=False).to(torch.uint8).to(dt) / 255.0
+                x = x.reshape((k * K,) + x.shape[2:])
+                if self.use_flow:
+                    fcubes = extract_stc(owd, boxes, P, quantize=False)
+                    mag = flow_magnitude(fcubes)  # (k, K)
+                    x_of = cube_to_input(fcubes, scale=False).to(dt)
+                    x_of = x_of.reshape((k * K,) + x_of.shape[2:])
+                else:
+                    mag = torch.full((k, K), float("inf"), device=self.device)
+                    x_of = None
+            with annotate("serve.ensemble"):
+                scores = []
+                for forward, st in zip(self._forwards, self._stats):
+                    out = forward(x, x_of)
+                    sc = (out.raw_out - out.raw_tgt).float().square().sum(
                         dim=(0, 2, 3, 4))
-                    # st[4] gates blocks trained without a flow stream
-                    score = score + st[4] * mc.w_of * (osc - st[2]) / st[3]
-                scores.append(score.reshape(k, K))
-            return torch.cat([torch.stack(scores, 1).reshape(k, -1), mag], 1)
+                    score = mc.w_raw * (sc - st[0]) / st[1]
+                    if out.of_out is not None:
+                        osc = (out.of_out - out.of_tgt).float().square().sum(
+                            dim=(0, 2, 3, 4))
+                        # st[4] gates blocks trained without a flow stream
+                        score = score + st[4] * mc.w_of * (osc - st[2]) / st[3]
+                    scores.append(score.reshape(k, K))
+                return torch.cat([torch.stack(scores, 1).reshape(k, -1), mag], 1)
 
     def _score_from_rings(self, win_t, owin_t, boxes_t) -> torch.Tensor:
         """(B*K + K,) for one frame whose window slots `win_t` / `owin_t`
@@ -300,7 +303,8 @@ class StreamingScorer:
         (serve._common._download_async), waited on when it is finished."""
         if self.pipeline_depth > 0:
             return _download_async(out)
-        return out.cpu(), None
+        with annotate("serve.wait"):
+            return out.cpu(), None
 
     def _emit_rows(self, outs: torch.Tensor, metas) -> List[float]:
         """Queue k results (rows of outs) with their (boxes_pad, nb,
@@ -351,12 +355,15 @@ class StreamingScorer:
         pipeline without a flow tree: zero flow cubes, motion filter
         bypassed. Returns the score of the frame pushed pipeline_depth
         calls ago (None while the pipeline fills)."""
-        frame = self._norm_frame(frame)
-        self._ensure_rings(*frame.shape[:2])
-        boxes_pad, nb = self._pad_boxes(boxes)
-        out = self._step(*self._stage(frame, flow, boxes_pad))
-        self._n_pushed += 1
-        return self._emit(out, boxes_pad, nb, self.use_flow and flow is None)
+        with annotate("serve.tick"):
+            with annotate("serve.stage"):
+                frame = self._norm_frame(frame)
+                self._ensure_rings(*frame.shape[:2])
+                boxes_pad, nb = self._pad_boxes(boxes)
+                args = self._stage(frame, flow, boxes_pad)
+            out = self._step(*args)
+            self._n_pushed += 1
+            return self._emit(out, boxes_pad, nb, self.use_flow and flow is None)
 
     @torch.no_grad()
     def push_many(self, frames: np.ndarray, boxes_list,
@@ -368,48 +375,56 @@ class StreamingScorer:
         results still in flight stay queued (drain() them). flows=None on
         a flow-fusing model degrades like push(flow=None): zero flow
         cubes, motion filter bypassed."""
-        frames = self._norm_frames(frames)
-        k = frames.shape[0]
-        if k == 0:
-            return []
-        self._ensure_rings(*frames.shape[1:3])
-        boxes_pad, nbs = self._pad_many(boxes_list, k)
-        skip_mag = self.use_flow and flows is None
-        n0, rlen = self._n_pushed, self._rlen
-        glob = n0 + np.arange(k)
+        with annotate("serve.tick"):
+            with annotate("serve.stage"):
+                frames = self._norm_frames(frames)
+                k = frames.shape[0]
+                if k == 0:
+                    return []
+                self._ensure_rings(*frames.shape[1:3])
+                boxes_pad, nbs = self._pad_many(boxes_list, k)
+                skip_mag = self.use_flow and flows is None
+                n0, rlen = self._n_pushed, self._rlen
+                glob = n0 + np.arange(k)
 
-        def staged(g, n):  # global frame -> slot of (ring of n slots, batch)
-            return np.where(g >= n0, n + g - n0, g % n)
+                def staged(g, n):  # global frame -> slot of (ring of n slots, batch)
+                    return np.where(g >= n0, n + g - n0, g % n)
 
-        win = np.stack([self._v0 + _predict_window(g - self._v0, self.ctx)
-                        for g in glob])
-        owin = np.stack([self._v0 + _predict_window(g - self._v0, self.ctx_of)
-                         for g in glob])
-        win_t, owin_t, keep_t, okeep_t = self._indices(
-            (staged(win, rlen), rlen + k), (staged(owin, self.R_of), self.R_of + k),
-            (glob[-rlen:] % rlen, rlen), (glob[-self.R_of:] % self.R_of, self.R_of),
-        )
-        frames_t = self._color(_upload(frames, self.device))
-        src = torch.cat([self._ring, frames_t])
-        wd = src.index_select(0, win_t).reshape((k, -1) + src.shape[1:])
-        owd = None
-        if self.use_flow:
-            flows_t = (
-                torch.zeros(frames_t.shape[:3] + (2,), device=self.device)
-                if flows is None
-                else _upload(np.asarray(flows, np.float32), self.device)
-            )
-            fsrc = torch.cat([self._flow_ring, flows_t])
-            owd = fsrc.index_select(0, owin_t).reshape((k, -1) + fsrc.shape[1:])
-        outs = self._score_windows(wd, owd, _upload(boxes_pad, self.device))
-        # the rings keep the newest frames (and flow maps)
-        self._ring[keep_t] = frames_t[-rlen:]
-        if self.use_flow:
-            self._flow_ring[okeep_t] = flows_t[-self.R_of:]
-        self._n_pushed += k
-        outs = outs.cpu().numpy()  # one download for all k frames
-        return [self._finish_host(outs[j], boxes_pad[j], nbs[j], self._scene,
-                                  skip_mag) for j in range(k)]
+                win = np.stack([self._v0 + _predict_window(g - self._v0, self.ctx)
+                                for g in glob])
+                owin = np.stack([self._v0 + _predict_window(g - self._v0, self.ctx_of)
+                                 for g in glob])
+                win_t, owin_t, keep_t, okeep_t = self._indices(
+                    (staged(win, rlen), rlen + k),
+                    (staged(owin, self.R_of), self.R_of + k),
+                    (glob[-rlen:] % rlen, rlen),
+                    (glob[-self.R_of:] % self.R_of, self.R_of),
+                )
+                frames_t = self._color(_upload(frames, self.device))
+                if self.use_flow:
+                    flows_t = (
+                        torch.zeros(frames_t.shape[:3] + (2,), device=self.device)
+                        if flows is None
+                        else _upload(np.asarray(flows, np.float32), self.device)
+                    )
+                boxes_t = _upload(boxes_pad, self.device)
+            src = torch.cat([self._ring, frames_t])
+            wd = src.index_select(0, win_t).reshape((k, -1) + src.shape[1:])
+            owd = None
+            if self.use_flow:
+                fsrc = torch.cat([self._flow_ring, flows_t])
+                owd = fsrc.index_select(0, owin_t).reshape((k, -1) + fsrc.shape[1:])
+            outs = self._score_windows(wd, owd, boxes_t)
+            # the rings keep the newest frames (and flow maps)
+            self._ring[keep_t] = frames_t[-rlen:]
+            if self.use_flow:
+                self._flow_ring[okeep_t] = flows_t[-self.R_of:]
+            self._n_pushed += k
+            with annotate("serve.wait"):
+                outs = outs.cpu().numpy()  # one download for all k frames
+            with annotate("serve.finish"):
+                return [self._finish_host(outs[j], boxes_pad[j], nbs[j], self._scene,
+                                          skip_mag) for j in range(k)]
 
     def time_device_step(self, frame: np.ndarray, boxes: np.ndarray,
                          k: int = 64, repeats: int = 3) -> float:
@@ -430,13 +445,15 @@ class StreamingScorer:
 
     def drain(self) -> List[float]:
         """Materialize and return the scores still in flight (stream end)."""
-        out = [self._finish(*e) for e in self._pending]
+        with annotate("serve.tick"):
+            out = [self._finish(*e) for e in self._pending]
         self._pending.clear()
         return out
 
     def _finish(self, handle, boxes_pad, nb, scene, skip_mag=False) -> float:
-        return self._finish_host(_host_result(handle), boxes_pad, nb, scene,
-                                 skip_mag)
+        out = _host_result(handle)
+        with annotate("serve.finish"):
+            return self._finish_host(out, boxes_pad, nb, scene, skip_mag)
 
     def _finish_host(self, out, boxes_pad, nb, scene, skip_mag=False) -> float:
         """Score reduction on a downloaded result vector: host-side grid

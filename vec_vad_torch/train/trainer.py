@@ -84,6 +84,7 @@ from vec_vad_torch.parallel.mesh import (
     shard,
 )
 from vec_vad_torch.pipeline import TrainedBlock, to_device
+from vec_vad_torch.runtime.profiling import annotate
 
 State = Dict[str, torch.Tensor]
 Cubes = Union[np.ndarray, torch.Tensor]
@@ -380,40 +381,51 @@ class BlockTrainer(nn.Module):
         stream" marker). Every input may be a numpy array or a tensor (a
         device-resident CubeSet's rows: nothing goes back to the host).
         full_f32 keeps the f32 training-score pass (and an f32 fit) off
-        TF32; bf16 convolutions do not read those flags."""
+        TF32; bf16 convolutions do not read those flags. The call is the
+        span `train.fit`, its phases the spans of fit_block_budget's names
+        (runtime.profiling)."""
         cfg = self.cfg
-        with full_f32():
-            self.start_fit(init_state if init_state is not None
-                           else self.init_state(seed))
+        with annotate("train.fit"), full_f32():
+            with annotate("train.init_state"):
+                self.start_fit(init_state if init_state is not None
+                               else self.init_state(seed))
             rng = np.random.default_rng(seed)
             if segments:
                 raws = [raw_inputs] + [r for r, _ in segments]
-                bufs = score_bufs = [self.upload(r) for r in raws]
-                of_bufs = [self.upload_flow(o, r.shape) for r, o in
-                           zip(raws, [of_inputs] + [o for _, o in segments])]
-                segs, idx, wmask = self._segment_schedule(
-                    [r.shape[0] for r in raws], rng)
+                with annotate("train.upload"):
+                    bufs = score_bufs = [self.upload(r) for r in raws]
+                    of_bufs = [self.upload_flow(o, r.shape) for r, o in
+                               zip(raws, [of_inputs] + [o for _, o in segments])]
+                with annotate("train.schedule_host"):
+                    segs, idx, wmask = self._segment_schedule(
+                        [r.shape[0] for r in raws], rng)
             else:
-                q = _quantize_u8(raw_inputs)
-                bufs = [self.upload(q)]
-                # the score pass reuses the uploaded uint8 buffer; float
-                # inputs were quantised for training and score as given
-                score_bufs = bufs if q is raw_inputs else [self.upload(raw_inputs)]
-                of_bufs = [self.upload_flow(of_inputs, raw_inputs.shape)]
-                idx, wmask = self._epoch_schedule(raw_inputs.shape[0], rng)
-                segs = np.zeros(idx.shape[0], np.int64)
-            losses = self._run_steps(bufs, of_bufs, segs, idx, wmask)
+                with annotate("train.upload"):
+                    q = _quantize_u8(raw_inputs)
+                    bufs = [self.upload(q)]
+                    # the score pass reuses the uploaded uint8 buffer; float
+                    # inputs were quantised for training and score as given
+                    score_bufs = bufs if q is raw_inputs else [self.upload(raw_inputs)]
+                    of_bufs = [self.upload_flow(of_inputs, raw_inputs.shape)]
+                with annotate("train.schedule_host"):
+                    idx, wmask = self._epoch_schedule(raw_inputs.shape[0], rng)
+                    segs = np.zeros(idx.shape[0], np.int64)
+            with annotate("train.train_scan"):
+                losses = self._run_steps(bufs, of_bufs, segs, idx, wmask)
             if log_every:
                 for s in range(0, losses.shape[0], max(1, log_every)):
                     print(f"step {s}: raw {losses[s, 1]:.5f} of {losses[s, 2]:.5f}")
-            scores = [self._score(b, o) for b, o in zip(score_bufs, of_bufs)]
-        has_of = cfg.use_flow and of_inputs is not None
-        return TrainedBlock(
-            state_dict=self.state(),
-            raw_scores=np.concatenate([r for r, _ in scores]),
-            of_scores=np.concatenate([o for _, o in scores]) if has_of else None,
-            losses=losses[:, 0],
-        )
+            with annotate("train.score_pass"):
+                scores = [self._score(b, o) for b, o in zip(score_bufs, of_bufs)]
+            with annotate("train.param_download"):
+                state = self.state()
+            has_of = cfg.use_flow and of_inputs is not None
+            return TrainedBlock(
+                state_dict=state,
+                raw_scores=np.concatenate([r for r, _ in scores]),
+                of_scores=np.concatenate([o for _, o in scores]) if has_of else None,
+                losses=losses[:, 0],
+            )
 
     def fit_block_budget(self, raw_inputs: Cubes, of_inputs: Optional[Cubes] = None,
                          seed: int = 0) -> Dict[str, float]:
