@@ -341,6 +341,7 @@ from vec_vad_torch.serve import (
     StreamingScorer,
 )
 from vec_vad_torch.serve import streaming as serve_streaming
+from vec_vad_torch.serve._common import _valid_rows
 from vec_vad_torch.train import grid_trainer
 from vec_vad_torch.train.trainer import BlockTrainer
 
@@ -2257,8 +2258,11 @@ def serving_surface_phase() -> dict:
     tick_ms = fleet.time_device_tick(f, b)
     # the per-camera loop form of the same tick, timed beside it
     batched = fleet._score_windows
-    fleet._score_windows = lambda wd, owd, bx: torch.cat(
-        [batched(wd[c:c + 1], owd[c:c + 1], bx[c:c + 1]) for c in range(FLEET_C)])
+    cam_rows = [(torch.from_numpy(r).cuda(), m) for r, m in
+                (_valid_rows([len(bc)], fleet.K) for bc in b)]
+    fleet._score_windows = lambda wd, owd, box_set: torch.cat(
+        [batched(wd[c:c + 1], owd[c:c + 1], (box_set[0][c:c + 1], *cam_rows[c]))
+         for c in range(FLEET_C)])
     loop_ms = fleet.time_device_tick(f, b)
     del fleet._score_windows
     tick_med = med(lat[2:])
@@ -2266,9 +2270,9 @@ def serving_surface_phase() -> dict:
           f"frames, starts staggered a tick apart: {tick_med:.3f} ms/tick "
           f"(synchronised median), {FLEET_C * 1e3 / tick_med:.1f} frames/s aggregate; "
           f"time_device_tick {tick_ms:.3f} ms batched (one ensemble forward over "
-          f"{FLEET_C} x {fleet.K} cubes), {loop_ms:.3f} ms as a per-camera loop; each "
-          f"camera against a StreamingScorer on its video max |diff| / max |score| "
-          f"{fleet_rel:.3e} (bound {SERVE_REL_TOL})", flush=True)
+          f"the valid rows of {FLEET_C} x {fleet.K} cubes), {loop_ms:.3f} ms as a "
+          f"per-camera loop; each camera against a StreamingScorer on its video "
+          f"max |diff| / max |score| {fleet_rel:.3e} (bound {SERVE_REL_TOL})", flush=True)
     check(np.isfinite(rows).all() and fleet_rel <= SERVE_REL_TOL,
           f"fleet against single scorers: {fleet_rel}")
 
@@ -4002,16 +4006,21 @@ def main() -> int:
     pair = torch.nn.functional.interpolate(  # any 384x512 frame pair
         x.permute(0, 3, 1, 2).float(), size=FLOW_HW, mode="bilinear"
     ).permute(0, 2, 3, 1)[None].contiguous()
-    # the other half of a live push: STC + the ensemble over the padded box set
-    win_t, owin_t = scorer._indices(
-        (np.arange(scorer.R), scorer._rlen), (np.zeros(scorer.R_of), scorer.R_of))
-    boxes_pad = torch.from_numpy(scorer._pad_boxes(videos[0][1][0])[0]).cuda()
+    # the other half of a live push: STC over the padded box set + the
+    # ensemble over its valid rows
+    boxes_pad, nb = scorer._pad_boxes(videos[0][1][0])
+    win_t, owin_t, rows_t = scorer._indices(
+        (np.arange(scorer.R), scorer._rlen), (np.zeros(scorer.R_of), scorer.R_of),
+        (_valid_rows([nb], scorer.K)[0], scorer.K))
+    boxes_pad = torch.from_numpy(boxes_pad).cuda()
     with torch.no_grad():
         flow_ms = cuda_ms(lambda: flow_net(pair), reps=10)
         score_ms = cuda_ms(
-            lambda: scorer._score_from_rings(win_t, owin_t, boxes_pad), reps=10)
+            lambda: scorer._score_from_rings(win_t, owin_t, (boxes_pad, rows_t, nb)),
+            reps=10)
     print(f"serve: FlowNet2 forward (1, 2, 384, 512, 3) f32 {flow_ms:.3f} ms; "
-          f"STC + 5raw1of ensemble over {scorer.K} padded boxes {score_ms:.3f} ms; "
+          f"STC over {scorer.K} padded boxes + 5raw1of ensemble over {nb} "
+          f"{score_ms:.3f} ms; "
           f"rest of the median push {np.median(steady) - flow_ms - score_ms:.3f} ms")
 
     # the same first 5 pushes served on the CPU: frames 0-3's scores

@@ -231,7 +231,7 @@ def test_out_of_range_motion_windows_clamp(models, stream):
     maps = []
     for mwin in (np.array([-3, 1, rlen + 4]), np.array([0, 1, rlen - 1])):
         sc._mwin = lambda mapped, tail, mwin=mwin: mwin
-        args = sc._motion_args(torch.from_numpy(frames[3]), None, 3, -1, 2, None, boxes)
+        args = sc._motion_args(torch.from_numpy(frames[3]), None, 3, -1, 2, None, boxes, 0)
         maps.append(sc._motion_step(*args))
     assert maps[0].shape == (4 * (sc.B * sc.K + sc.K) + 48 * 64,)
     torch.testing.assert_close(maps[0], maps[1], rtol=0, atol=0)

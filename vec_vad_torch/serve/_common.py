@@ -1,6 +1,6 @@
 """Shared serving plumbing (vec_vad_tpu/serve/_common.py): window math,
-the host side of the device traffic, the device-time chain every probe
-uses, and the fleet helpers.
+the row set of a step's valid cubes, the host side of the device
+traffic, the device-time chain every probe uses, and the fleet helpers.
 
 The JAX package's one-buffer weight packing (_pack_f32/_unflatten_f32/
 _download_f32_tree) has no counterpart here: it existed to marshal a
@@ -21,6 +21,28 @@ import torch
 from vec_vad_torch.device import resolve_device
 from vec_vad_torch.parallel.mesh import as_mesh
 from vec_vad_torch.runtime.profiling import annotate
+
+# The ensemble forwards a step's valid cube rows padded to a multiple of
+# ROW_BUCKET (capped at the step's k*K): one fixed granularity bounds the
+# batch sizes, and so the cuDNN plans and allocator sizes, a stream meets.
+# On an H100 a live fleet tick (8 cameras, 1-8 boxes each) took 3 % less
+# at 8 than at 16 and 3 % more at 32; a raw fleet tick (13-22 boxes) the
+# same at 8 and 16, 8 % more at 32; a size's first tick cost no more
+# than later ones (PERF.md, PR 20).
+ROW_BUCKET = 8
+
+
+def _valid_rows(nbs, K: int) -> Tuple[np.ndarray, int]:
+    """(rows, M) for a step over k = len(nbs) frames with K box slots
+    each: the flat cube rows j*K + b, b < nbs[j], in frame-major order
+    (M of them), padded to min(ceil(M / ROW_BUCKET) * ROW_BUCKET, k*K)
+    rows by repeating the first; none when M is 0."""
+    nbs = np.asarray(nbs, np.int64).reshape(-1)
+    b = np.arange(K)
+    rows = (np.arange(nbs.size)[:, None] * K + b)[b < nbs[:, None]]
+    m = rows.size
+    size = min(-(-m // ROW_BUCKET) * ROW_BUCKET, nbs.size * K)
+    return np.concatenate([rows, np.repeat(rows[:1], size - m)]), m
 
 
 def _predict_window(pos: int, ctx: int) -> np.ndarray:

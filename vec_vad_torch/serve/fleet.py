@@ -3,10 +3,12 @@
 
 The JAX package scans the single-camera step over the camera axis
 (`lax.scan`, its fastest form on the TPU). Here a tick writes the C
-frames into the (C, R, H, W, 3) ring, gathers every camera's window and
-runs ONE ensemble forward over the C*K cubes: eval-mode BatchNorm makes
-each row independent of the others, so the form changes the summation
-order of a batched convolution, not the result.
+frames into the (C, R, H, W, 3) ring, gathers every camera's window,
+cuts the C*K padded cubes and runs ONE ensemble forward over the cubes
+of the tick's boxes alone (its valid rows, padded to a bucket of
+serve._common.ROW_BUCKET rows): eval-mode BatchNorm makes each row
+independent of the others, so the form changes the summation order of a
+batched convolution, not the result.
 
 On a device mesh (`mesh=`, vec_vad_tpu's camera sharding) each of the n
 entries serves C / n cameras, contiguous in camera order: its own rings
@@ -32,6 +34,7 @@ from vec_vad_torch.serve._common import (
     _host_result,
     _time_device_chain,
     _upload,
+    _valid_rows,
 )
 from vec_vad_torch.parallel.mesh import gather
 from vec_vad_torch.runtime.profiling import annotate
@@ -119,28 +122,32 @@ class MultiCameraScorer(StreamingScorer):
 
     # -- the fleet tick -------------------------------------------------
 
-    def _stage_tick(self, frames, flows, boxes_pad, rep, cams: slice):
+    def _stage_tick(self, frames, flows, boxes_pad, nbs, rep, cams: slice):
         """One tick's host inputs for the cameras `cams` of one mesh entry,
         on that entry's device (`rep`, its scorer): (frames, flows or
-        None, slots, per-camera window indices (c, T) and (c, T_of),
-        boxes)."""
+        None, slots, per-camera window indices (c, T) and (c, T_of), box
+        set: the boxes, the row set of the cameras' box counts
+        `nbs[cams]` and its count)."""
         v0 = self._cam_v0[cams]
         pos = self._tick - v0
         win = np.stack([self._windows(p, v, self.ctx, self._rlen)
                         for p, v in zip(pos, v0)])
         owin = np.stack([self._windows(p, v, self.ctx_of, self.R_of)
                          for p, v in zip(pos, v0)])
-        win_t, owin_t = rep._indices((win, self._rlen), (owin, self.R_of))
+        rows, n_valid = _valid_rows(np.asarray(nbs)[cams], self.K)
+        win_t, owin_t, rows_t = rep._indices((win, self._rlen), (owin, self.R_of),
+                                             (rows, len(v0) * self.K))
         flows_t = None
         if self.use_flow and flows is not None:
             flows_t = _upload(np.asarray(flows[cams], np.float32), rep.device)
         return (_upload(frames[cams], rep.device), flows_t, self._tick % self._rlen,
                 self._tick % self.R_of, win_t.reshape(len(v0), -1),
-                owin_t.reshape(len(v0), -1), _upload(boxes_pad[cams], rep.device))
+                owin_t.reshape(len(v0), -1),
+                (_upload(boxes_pad[cams], rep.device), rows_t, n_valid))
 
-    def _staged_ticks(self, frames, flows, boxes_pad):
+    def _staged_ticks(self, frames, flows, boxes_pad, nbs):
         """(entry scorer, its staged tick inputs) for every mesh entry."""
-        return [(rep, self._stage_tick(frames, flows, boxes_pad, rep, cams))
+        return [(rep, self._stage_tick(frames, flows, boxes_pad, nbs, rep, cams))
                 for rep, cams in self._entries()]
 
     def _run_ticks(self, staged) -> torch.Tensor:
@@ -150,9 +157,10 @@ class MultiCameraScorer(StreamingScorer):
         return outs[0] if len(outs) == 1 else gather(outs, self.device)
 
     def _tick_step(self, frames_t, flows_t, slot, of_slot, win_t, owin_t,
-                   boxes_t) -> torch.Tensor:
+                   box_set) -> torch.Tensor:
         """One tick on the device: the C ring writes, then every camera's
-        scores from one ensemble forward. -> (C, B*K + K)"""
+        scores from one ensemble forward over the tick's row set.
+        -> (C, B*K + K)"""
         self._ring[:, slot] = self._color(frames_t)
         owd = None
         if self.use_flow:
@@ -161,7 +169,7 @@ class MultiCameraScorer(StreamingScorer):
             else:
                 self._flow_ring[:, of_slot] = flows_t
             owd = self._flow_ring[self._cams, owin_t]
-        return self._score_windows(self._ring[self._cams, win_t], owd, boxes_t)
+        return self._score_windows(self._ring[self._cams, win_t], owd, box_set)
 
     def _norm_tick(self, frames, boxes_list):
         frames = self._norm_frames(frames)
@@ -190,7 +198,7 @@ class MultiCameraScorer(StreamingScorer):
             with annotate("serve.stage"):
                 frames, boxes_pad, nbs = self._norm_tick(frames, boxes_list)
                 self._ensure_rings(*frames.shape[1:3])
-                staged = self._staged_ticks(frames, flows, boxes_pad)
+                staged = self._staged_ticks(frames, flows, boxes_pad, nbs)
             outs = self._run_ticks(staged)
             self._tick += 1
             return self._emit_tick(outs, boxes_pad, nbs,
@@ -201,13 +209,14 @@ class MultiCameraScorer(StreamingScorer):
         """Device-time twin of push_tick(): best ms per tick of the device
         step alone, inputs staged once and k ticks chained per repeat
         (serve._common._time_device_chain; zero flow maps on a
-        flow-fusing model). Runs on clones of the rings: the fleet's
-        serving state is untouched."""
-        frames, boxes_pad, _ = self._norm_tick(frames, boxes_list)
+        flow-fusing model), the ensemble over the valid rows of
+        `boxes_list` as push_tick runs it. Runs on clones of the rings:
+        the fleet's serving state is untouched."""
+        frames, boxes_pad, nbs = self._norm_tick(frames, boxes_list)
         self._ensure_rings(*frames.shape[1:3])
         zero = np.zeros(frames.shape[:3] + (2,), np.float32)
         staged = self._staged_ticks(frames, zero if self.use_flow else None,
-                                    boxes_pad)
+                                    boxes_pad, nbs)
         with torch.no_grad():
             return _time_device_chain(self, lambda: self._run_ticks(staged), k,
                                       repeats)

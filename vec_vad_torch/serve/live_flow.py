@@ -23,10 +23,12 @@ runs them through ONE FlowNet2 forward at batch k (k-1 in a video's first
 batch, whose pair (f0, f1) is used by no frame) and then scores the
 batch's frames in one ensemble forward: one cost-volume launch a batch.
 `MultiCameraFlowScorer` does the same across a fleet: one FlowNet2
-forward over the C cameras' pairs and one ensemble forward over their
-C*K cubes a tick. On a device mesh (`mesh=`) each of the n entries runs
-both for its C / n cameras, on its own replicas of FlowNet2 and of the
-ensemble (serve.fleet's layout), so FlowNet2 runs at batch C / n an entry.
+forward over the C cameras' pairs and one ensemble forward a tick over
+the valid rows of their C*K cubes (the cubes of the tick's boxes,
+StreamingScorer._score_windows). On a device mesh (`mesh=`) each of the
+n entries runs both for its C / n cameras, on its own replicas of
+FlowNet2 and of the ensemble (serve.fleet's layout), so FlowNet2 runs at
+batch C / n an entry.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from vec_vad_torch.serve._common import (
     _predict_window,
     _time_device_chain,
     _upload,
+    _valid_rows,
 )
 from vec_vad_torch.serve.fleet import MultiCameraScorer
 from vec_vad_torch.serve.streaming import StreamingScorer
@@ -104,25 +107,30 @@ class FlowStreamingScorer(StreamingScorer):
             pr = pr.to(self._flow_dtype).reshape(n, 2, mh, mw, 3)
             return resize_bilinear(self.flow_net(pr).float(), H, W)
 
-    def _flow_args(self, tpos: int, slot: int, prev_slot: int):
-        """Host part of the step scoring within-video frame tpos whose flow
-        pair is (prev_slot, slot): (of_slot, pair, window and flow-window
-        indices on the device)."""
-        pair_t, win_t, owin_t = self._indices(
+    def _flow_args(self, tpos: int, slot: int, prev_slot: int, boxes_pad,
+                   nb: int):
+        """Host part of the step scoring within-video frame tpos, with its
+        padded boxes and their count nb, whose flow pair is (prev_slot,
+        slot): (of_slot, pair, window and flow-window indices, and the
+        box set: the boxes, their row set and nb)."""
+        rows, n_valid = _valid_rows([nb], self.K)
+        pair_t, win_t, owin_t, rows_t = self._indices(
             ((prev_slot, slot), self._rlen),
             (self._windows(tpos, self._v0, self.ctx, self._rlen), self._rlen),
             (self._windows(tpos, self._v0, self.ctx_of, self.R_of), self.R_of),
+            (rows, self.K),
         )
-        return (self._v0 + tpos) % self.R_of, pair_t, win_t, owin_t
+        return ((self._v0 + tpos) % self.R_of, pair_t, win_t, owin_t,
+                (_upload(boxes_pad, self.device), rows_t, n_valid))
 
     def _flow_step(self, frame_t, slot, of_slot, pair_t, win_t, owin_t,
-                   boxes_t) -> torch.Tensor:
+                   box_set) -> torch.Tensor:
         """Write `frame_t` to ring slot `slot`, compute the flow of the
         ring pair `pair_t` into flow slot `of_slot`, and score."""
         self._write_frame(slot, frame_t)
         pair = self._ring.index_select(0, pair_t)  # (2, H, W, 3) uint8
         self._flow_ring[of_slot] = self._live_flow(pair[None])[0]
-        return self._score_from_rings(win_t, owin_t, boxes_t)
+        return self._score_from_rings(win_t, owin_t, box_set)
 
     # -- streaming API ---------------------------------------------------
 
@@ -155,19 +163,17 @@ class FlowStreamingScorer(StreamingScorer):
                     # frame 0's pair is (f0, f0): score it in the same push
                     sb, snb = boxes_pad, nb
                     self._first = frame
-                    args = self._flow_args(0, slot, slot)
+                    args = self._flow_args(0, slot, slot, sb, snb)
                 elif pos >= 2:
                     _, sb, snb = self._last
                     prev = (self._n_pushed - 1) % self._rlen
-                    args = self._flow_args(pos - 1, slot, prev)
-                if pos != 1:
-                    boxes_t = _upload(sb, self.device)
+                    args = self._flow_args(pos - 1, slot, prev, sb, snb)
             out = None
             if pos == 1:
                 # flow(0 -> 1) is used by no frame: only advance the ring
                 self._write_frame(slot, frame_t)
             else:
-                out = self._flow_step(frame_t, slot, *args, boxes_t)
+                out = self._flow_step(frame_t, slot, *args)
             self._n_pushed += 1
             self._last = (frame, boxes_pad, nb)
             if out is None:
@@ -222,10 +228,12 @@ class FlowStreamingScorer(StreamingScorer):
                                      for t in tpos])
                     ostaged = np.where(owin >= t0, self.R_of + owin - t0,
                                        owin % self.R_of)
-                    pair_t, win_t, owin_t, okeep_t = self._indices(
+                    rows, n_valid = _valid_rows([nb for _, _, _, nb in live], self.K)
+                    pair_t, win_t, owin_t, okeep_t, rows_t = self._indices(
                         (staged(np.array([p for p, _, _, _ in live])), rlen + k),
                         (staged(win), rlen + k), (ostaged, self.R_of + n),
                         ((v0 + tpos[-self.R_of:]) % self.R_of, self.R_of),
+                        (rows, n * self.K),
                     )
                     boxes_t = _upload(np.stack([bp for _, _, bp, _ in live]),
                                       self.device)
@@ -238,7 +246,7 @@ class FlowStreamingScorer(StreamingScorer):
                 fsrc = torch.cat([self._flow_ring, flows])
                 wd = src.index_select(0, win_t).reshape((n, -1) + src.shape[1:])
                 owd = fsrc.index_select(0, owin_t).reshape((n, -1) + fsrc.shape[1:])
-                outs = self._score_windows(wd, owd, boxes_t)
+                outs = self._score_windows(wd, owd, (boxes_t, rows_t, n_valid))
                 self._flow_ring[okeep_t] = flows[-self.R_of:]
             self._ring[keep_t] = frames_t[-rlen:]
             self._n_pushed += k
@@ -254,13 +262,13 @@ class FlowStreamingScorer(StreamingScorer):
         protocol). Runs on clones of the rings: serving state is
         untouched."""
         frame = self._norm_frame(frame)
-        boxes_pad, _ = self._pad_boxes(boxes)
+        boxes_pad, nb = self._pad_boxes(boxes)
         self._ensure_rings(*frame.shape[:2])
         pos = max(self._n_pushed - self._v0, 2)
         slot = self._n_pushed % self._rlen
         args = (_upload(frame, self.device), slot,
-                *self._flow_args(pos - 1, slot, (self._n_pushed - 1) % self._rlen),
-                _upload(boxes_pad, self.device))
+                *self._flow_args(pos - 1, slot, (self._n_pushed - 1) % self._rlen,
+                                 boxes_pad, nb))
         with torch.no_grad():
             return _time_device_chain(self, lambda: self._flow_step(*args), k,
                                       repeats)
@@ -292,8 +300,7 @@ class FlowStreamingScorer(StreamingScorer):
         with annotate("serve.tick"):
             with annotate("serve.stage"):
                 args = (_upload(frame, self.device), slot,
-                        *self._flow_args(n - 1, slot, prev_slot),
-                        _upload(boxes_pad, self.device))
+                        *self._flow_args(n - 1, slot, prev_slot, boxes_pad, nb))
             return self._emit(self._flow_step(*args), boxes_pad, nb)
 
 
@@ -361,32 +368,37 @@ class MultiCameraFlowScorer(FlowStreamingScorer):
         )
 
     def _staged_ticks(self, frames, tpos: int, slot: int, prev_slot: int,
-                      boxes_pad):
+                      boxes_pad, nbs):
         """(entry scorer, its tick_step arguments) for every mesh entry:
-        its cameras' frames and boxes and the slot math, identical for
-        every camera (the fleet is tick-synchronised), on its device."""
+        its cameras' frames, boxes and the row set of their box counts
+        `nbs`, and the slot math, identical for every camera (the fleet is
+        tick-synchronised), on its device."""
         v0 = self._tick_v0
         groups = (((prev_slot, slot), self._rlen),
                   (self._windows(tpos, v0, self.ctx, self._rlen), self._rlen),
                   (self._windows(tpos, v0, self.ctx_of, self.R_of), self.R_of))
         out = []
         for rep, cams in self._entries():
-            pair_t, win_t, owin_t = rep._indices(*groups)
+            rows, n_valid = _valid_rows(np.asarray(nbs)[cams], self.K)
+            pair_t, win_t, owin_t, rows_t = rep._indices(
+                *groups, (rows, self._Cs * self.K))
             out.append((rep, (_upload(frames[cams], rep.device), slot,
                               (v0 + tpos) % self.R_of, pair_t, win_t, owin_t,
-                              _upload(boxes_pad[cams], rep.device))))
+                              (_upload(boxes_pad[cams], rep.device), rows_t,
+                               n_valid))))
         return out
 
     def _tick_step(self, frames_t, slot, of_slot, pair_t, win_t, owin_t,
-                   boxes_t) -> torch.Tensor:
+                   box_set) -> torch.Tensor:
         """One live tick on the device: ring writes, the C pairs' flow in
-        one forward, then the C frames' scores. -> (C, B*K + K)"""
+        one forward, then the C frames' scores over the tick's row set.
+        -> (C, B*K + K)"""
         self._ring[:, slot] = self._color(frames_t)
         self._flow_ring[:, of_slot] = self._live_flow(
             self._ring.index_select(1, pair_t))
         return self._score_windows(self._ring.index_select(1, win_t),
                                    self._flow_ring.index_select(1, owin_t),
-                                   boxes_t)
+                                   box_set)
 
     @torch.no_grad()
     def push_tick(self, frames, boxes_list) -> Optional[List[float]]:
@@ -404,14 +416,15 @@ class MultiCameraFlowScorer(FlowStreamingScorer):
                 if pos == 0:
                     sb, snb = boxes_pad, nbs
                     self._first_frames = frames
-                    staged = self._staged_ticks(frames, 0, slot, slot, sb)
+                    staged = self._staged_ticks(frames, 0, slot, slot, sb, snb)
                 elif pos == 1:
                     staged = [(rep, _upload(frames[cams], rep.device))
                               for rep, cams in self._entries()]
                 else:
                     _, sb, snb = self._last_tick
                     prev = (self._tick - 1) % self._rlen
-                    staged = self._staged_ticks(frames, pos - 1, slot, prev, sb)
+                    staged = self._staged_ticks(frames, pos - 1, slot, prev, sb,
+                                                snb)
             outs = None
             if pos == 1:
                 # flow(0 -> 1) is used by no frame: only advance the rings
@@ -429,15 +442,16 @@ class MultiCameraFlowScorer(FlowStreamingScorer):
                          repeats: int = 3) -> float:
         """Device-time twin of a live tick: best ms per tick (C ring
         writes, one FlowNet2 forward over the C pairs, one ensemble
-        forward over the C*K cubes), inputs staged once
+        forward over the valid rows of the C*K cubes: the cubes of
+        `boxes_list`), inputs staged once
         (serve._common._time_device_chain). Runs on clones of the rings:
         the fleet's serving state is untouched."""
-        frames, boxes_pad, _ = self._norm_tick(frames, boxes_list)
+        frames, boxes_pad, nbs = self._norm_tick(frames, boxes_list)
         self._ensure_rings(*frames.shape[1:3])
         pos = max(self._tick - self._tick_v0, 2)
         slot = self._tick % self._rlen
         staged = self._staged_ticks(frames, pos - 1, slot,
-                                    (self._tick - 1) % self._rlen, boxes_pad)
+                                    (self._tick - 1) % self._rlen, boxes_pad, nbs)
         with torch.no_grad():
             return _time_device_chain(self, lambda: self._run_ticks(staged), k,
                                       repeats)
@@ -464,7 +478,7 @@ class MultiCameraFlowScorer(FlowStreamingScorer):
         with annotate("serve.tick"):
             with annotate("serve.stage"):
                 staged = self._staged_ticks(frames, n - 1, slot, prev_slot,
-                                            boxes_pad)
+                                            boxes_pad, nbs)
             return self._emit_tick(self._run_ticks(staged), boxes_pad, nbs)
 
     # the fleet's mesh entries, rings, tick inputs and result plumbing are

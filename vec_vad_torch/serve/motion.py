@@ -43,6 +43,7 @@ from vec_vad_torch.serve._common import (
     _host_result,
     _time_device_chain,
     _upload,
+    _valid_rows,
 )
 from vec_vad_torch.serve.streaming import StreamingScorer
 
@@ -127,30 +128,35 @@ class MotionStreamingScorer(StreamingScorer):
         return torch.cat(parts)
 
     def _motion_args(self, frame_t, flow_t, pos, scored, mapped, tail_hint,
-                     boxes_pad) -> tuple:
+                     boxes_pad, nb) -> tuple:
         """The host part of a step writing `frame_t` at within-video
-        position `pos`, scoring frame `scored` and mapping frame `mapped`
-        (< 0: none): ring slots and device index tensors."""
+        position `pos`, scoring frame `scored` (its padded boxes, nb of
+        them valid) and mapping frame `mapped` (< 0: none): ring slots,
+        device index tensors and the scored frame's box set (boxes, row
+        set, nb)."""
         v0, rlen, orlen = self._v0, self._rlen, self._of_rlen
         s = max(scored, 0)
-        win_t, owin_t, mwin_t = self._indices(
+        rows, n_valid = _valid_rows([nb], self.K)
+        win_t, owin_t, mwin_t, rows_t = self._indices(
             (self._windows(s, v0, self.ctx, rlen), rlen),
             (self._windows(s, v0, self.ctx_of, orlen), orlen),
             (self._mwin(mapped, tail_hint), rlen),
+            (rows, self.K),
         )
         return (frame_t, flow_t, (v0 + pos) % rlen, (v0 + pos) % orlen,
-                win_t, owin_t, mwin_t, _upload(boxes_pad, self.device),
+                win_t, owin_t, mwin_t,
+                (_upload(boxes_pad, self.device), rows_t, n_valid),
                 scored >= 0, mapped >= 0)
 
     def _motion_step(self, frame_t, flow_t, slot, of_slot, win_t, owin_t,
-                     mwin_t, boxes_t, score, mapped) -> torch.Tensor:
+                     mwin_t, box_set, score, mapped) -> torch.Tensor:
         """One push on the device, its inputs already there: the ring
         writes (no flow on a flow-fusing model writes zero flow), the
         scored frame's scores and the mapped frame's map."""
         self._write_frame(slot, frame_t)
         if self.use_flow:
             self._flow_ring[of_slot] = 0.0 if flow_t is None else flow_t
-        out = self._score_from_rings(win_t, owin_t, boxes_t) if score else None
+        out = self._score_from_rings(win_t, owin_t, box_set) if score else None
         return self._result(out, mwin_t if mapped else None)
 
     # -- streaming API ----------------------------------------------------
@@ -247,13 +253,13 @@ class MotionStreamingScorer(StreamingScorer):
         conveyor's queues alone, so a probe can run mid-video."""
         frame = self._norm_frame(frame)
         self._ensure_rings(*frame.shape[:2])
-        boxes_pad, _ = self._pad_boxes(boxes)
+        boxes_pad, nb = self._pad_boxes(boxes)
         pos = max(self._n_pushed - self._v0, 3)
         flow_t = None
         if self.use_flow:
             flow_t = torch.zeros(frame.shape[:2] + (2,), device=self.device)
         args = self._motion_args(_upload(frame, self.device), flow_t, pos,
-                                 pos - 2, pos - 1, None, boxes_pad)
+                                 pos - 2, pos - 1, None, boxes_pad, nb)
         with torch.no_grad():
             return _time_device_chain(self, lambda: self._motion_step(*args),
                                       k, repeats)
@@ -279,7 +285,7 @@ class MotionStreamingScorer(StreamingScorer):
         else:
             boxes_pad, nb, skip_mag = np.zeros((self.K, 4), np.float32), 0, True
         out = self._motion_step(*self._motion_args(
-            frame_t, flow_t, pos, scored, mapped, tail_hint, boxes_pad))
+            frame_t, flow_t, pos, scored, mapped, tail_hint, boxes_pad, nb))
         self._flight.append((_download_async(out), boxes_pad, nb, self._scene,
                              skip_mag, scored, mapped))
 

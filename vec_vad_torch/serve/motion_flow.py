@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from vec_vad_torch.flow.driver import cast_flow_net
-from vec_vad_torch.serve._common import _upload
+from vec_vad_torch.serve._common import _upload, _valid_rows
 from vec_vad_torch.serve.live_flow import FlowStreamingScorer
 from vec_vad_torch.serve.motion import MotionStreamingScorer
 
@@ -91,23 +91,26 @@ class MotionFlowStreamingScorer(MotionStreamingScorer):
         return scored, scored + 1
 
     def _motion_args(self, frame_t, flow_t, pos, scored, mapped, tail_hint,
-                     boxes_pad) -> tuple:
+                     boxes_pad, nb) -> tuple:
         """As MotionStreamingScorer's, with the scored frame's flow slot
         and its flow pair's ring slots (flow_t is unused)."""
         v0, rlen, orlen = self._v0, self._rlen, self._of_rlen
         s = max(scored, 0)
-        win_t, owin_t, mwin_t, pair_t = self._indices(
+        rows, n_valid = _valid_rows([nb], self.K)
+        win_t, owin_t, mwin_t, pair_t, rows_t = self._indices(
             (self._windows(s, v0, self.ctx, rlen), rlen),
             (self._windows(s, v0, self.ctx_of, orlen), orlen),
             (self._mwin(mapped, tail_hint), rlen),
             ((v0 + np.array(self._flow_pair(s, tail_hint))) % rlen, rlen),
+            (rows, self.K),
         )
         return (frame_t, pair_t, (v0 + pos) % rlen, (v0 + s) % orlen,
-                win_t, owin_t, mwin_t, _upload(boxes_pad, self.device),
+                win_t, owin_t, mwin_t,
+                (_upload(boxes_pad, self.device), rows_t, n_valid),
                 scored >= 0, mapped >= 0)
 
     def _motion_step(self, frame_t, pair_t, slot, of_slot, win_t, owin_t,
-                     mwin_t, boxes_t, score, mapped) -> torch.Tensor:
+                     mwin_t, box_set, score, mapped) -> torch.Tensor:
         """Write the frame; when scoring, the pair's flow into the flow
         ring and the scored frame's scores; then the mapped frame's map."""
         self._write_frame(slot, frame_t)
@@ -115,7 +118,7 @@ class MotionFlowStreamingScorer(MotionStreamingScorer):
         if score:
             pair = self._ring.index_select(0, pair_t)  # (2, H, W, 3) uint8
             self._flow_ring[of_slot] = self._live_flow(pair[None])[0]
-            out = self._score_from_rings(win_t, owin_t, boxes_t)
+            out = self._score_from_rings(win_t, owin_t, box_set)
         return self._result(out, mwin_t if mapped else None)
 
     def time_device_step(self, frame, boxes, k: int = 16,

@@ -3,21 +3,25 @@
 
 Per push: the frame goes into a ring tensor on the device, the frame's
 'predict' context window is gathered from the ring, STC cubes are cut for
-its padded box set, every block's completion ensemble scores them, and
-one (B*K + K,) result vector (block scores, then motion magnitudes) comes
-back to the host, where grid routing reduces it to the frame score
-(test.py:282-357 semantics). Scoring runs in `compute_dtype` (float32 with
-TF32 off, or bfloat16).
+its padded box set, every block's completion ensemble scores the cubes of
+the frame's boxes alone (the valid rows, padded to a bucket of ROW_BUCKET
+rows: serve._common._valid_rows), and one (B*K + K,) result vector (block
+scores, then motion magnitudes) comes back to the host, where grid
+routing reduces it to the frame score (test.py:282-357 semantics). The
+JAX package scores all K padded rows, since XLA needs the fixed shape;
+their scores are never read. Scoring runs in `compute_dtype` (float32
+with TF32 off, or bfloat16).
 
 `push_many` scores k frames of the current video in one ensemble forward
-over k*K cubes, gathering each frame's window from a staging copy of the
-ring followed by the batch (writing all k frames into the R-slot ring
-first would overwrite windows the batch's earlier frames still need), and
-downloads the k results once. With pipeline_depth d, push(frame_t)
-returns the score of frame t-d: each step's uploads are non-blocking and
-its result's download starts when the step is queued, so the host waits
-for step t-d's copy only. `time_device_step` times the device step alone
-on clones of the rings (serve._common._time_device_chain).
+over the valid rows of their k*K cubes, gathering each frame's window
+from a staging copy of the ring followed by the batch (writing all k
+frames into the R-slot ring first would overwrite windows the batch's
+earlier frames still need), and downloads the k results once. With
+pipeline_depth d, push(frame_t) returns the score of frame t-d: each
+step's uploads are non-blocking and its result's download starts when
+the step is queued, so the host waits for step t-d's copy only.
+`time_device_step` times the device step alone on clones of the rings
+(serve._common._time_device_chain).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from vec_vad_torch.serve._common import (
     _predict_window,
     _time_device_chain,
     _upload,
+    _valid_rows,
 )
 from vec_vad_torch.utils.blocks import calc_block_idx
 
@@ -195,34 +200,48 @@ class StreamingScorer:
     def _write_frame(self, slot: int, frame_t: torch.Tensor) -> None:
         self._ring[slot] = self._color(frame_t)
 
-    def _score_windows(self, wd, owd, boxes) -> torch.Tensor:
+    def _score_windows(self, wd, owd, box_set) -> torch.Tensor:
         """(k, B*K + K) float32 on the device from k gathered windows: per
         frame its block scores, then its boxes' motion magnitudes (inf
         when no flow stream is served). wd: (k, T, H, W, 3) uint8; owd:
-        (k, T_of, H, W, 2) float32 (None for a raw-only model); boxes:
-        (k, K, 4). Cube extraction is the `serve.stc` span; one ensemble
-        forward per block over the k*K cubes (eval-mode BatchNorm: no row
-        depends on another) and the score arithmetic, `serve.ensemble`."""
+        (k, T_of, H, W, 2) float32 (None for a raw-only model); box_set:
+        (boxes, rows, n_valid), the (k, K, 4) padded boxes and their row
+        set, `rows` on the device (serve._common._valid_rows: the n_valid
+        flat rows j*K + b of the frames' boxes, then repeats up to the
+        bucket) and its count n_valid on the host.
+
+        Cube extraction over all k*K padded boxes is the `serve.stc` span,
+        with the gather of the row set's cubes. One ensemble forward per
+        block over those rows alone (eval-mode BatchNorm: no row depends
+        on another) and the score arithmetic are `serve.ensemble`; the
+        first n_valid scores are written to their rows, the bucket's
+        repeats dropped. A block score of a padded row (b >= nbs[j]) is
+        unspecified (0.0 here): callers read only a frame's first nb.
+        n_valid 0 runs no forward."""
         P, K, dt = self.P, self.K, self.compute_dtype
+        boxes, rows, n_valid = box_set
         k = wd.shape[0]
         mc = self.cfg.model
         with full_f32(dt):
             with annotate("serve.stc"):
                 cubes = extract_stc(wd, boxes, P, quantize=True)  # (k, K, T, P, P, 3)
                 # uint8 round trip: bit-identical to the offline uint8 cube buffer
-                x = cube_to_input(cubes, scale=False).to(torch.uint8).to(dt) / 255.0
+                x = cube_to_input(cubes, scale=False).to(torch.uint8)
                 x = x.reshape((k * K,) + x.shape[2:])
+                x = x.index_select(0, rows).to(dt) / 255.0
                 if self.use_flow:
                     fcubes = extract_stc(owd, boxes, P, quantize=False)
                     mag = flow_magnitude(fcubes)  # (k, K)
-                    x_of = cube_to_input(fcubes, scale=False).to(dt)
+                    x_of = cube_to_input(fcubes, scale=False)
                     x_of = x_of.reshape((k * K,) + x_of.shape[2:])
+                    x_of = x_of.index_select(0, rows).to(dt)
                 else:
                     mag = torch.full((k, K), float("inf"), device=self.device)
                     x_of = None
             with annotate("serve.ensemble"):
-                scores = []
-                for forward, st in zip(self._forwards, self._stats):
+                scores = torch.zeros((self.B, k * K), device=self.device)
+                blocks = zip(self._forwards, self._stats) if n_valid else ()
+                for b, (forward, st) in enumerate(blocks):
                     out = forward(x, x_of)
                     sc = (out.raw_out - out.raw_tgt).float().square().sum(
                         dim=(0, 2, 3, 4))
@@ -232,19 +251,22 @@ class StreamingScorer:
                             dim=(0, 2, 3, 4))
                         # st[4] gates blocks trained without a flow stream
                         score = score + st[4] * mc.w_of * (osc - st[2]) / st[3]
-                    scores.append(score.reshape(k, K))
-                return torch.cat([torch.stack(scores, 1).reshape(k, -1), mag], 1)
+                    scores[b].index_copy_(0, rows[:n_valid], score[:n_valid])
+                scores = scores.reshape(self.B, k, K).transpose(0, 1).reshape(k, -1)
+                return torch.cat([scores, mag], 1)
 
-    def _score_from_rings(self, win_t, owin_t, boxes_t) -> torch.Tensor:
+    def _score_from_rings(self, win_t, owin_t, box_set) -> torch.Tensor:
         """(B*K + K,) for one frame whose window slots `win_t` / `owin_t`
-        are in the rings; boxes_t (K, 4) on the device."""
+        are in the rings; box_set: its (K, 4) boxes, row set and count
+        (_score_windows' box_set for one frame)."""
         wd = self._ring.index_select(0, win_t)[None]
         owd = (self._flow_ring.index_select(0, owin_t)[None]
                if self.use_flow else None)
-        return self._score_windows(wd, owd, boxes_t[None])[0]
+        boxes_t, rows_t, n_valid = box_set
+        return self._score_windows(wd, owd, (boxes_t[None], rows_t, n_valid))[0]
 
     def _step(self, frame_t, flow_t, slot, of_slot, win_t, owin_t,
-              boxes_t) -> torch.Tensor:
+              box_set) -> torch.Tensor:
         """One push on the device, its inputs already there: the ring
         writes (flow_t None on a flow-fusing model writes zero flow),
         then the frame's scores."""
@@ -254,7 +276,7 @@ class StreamingScorer:
                 self._flow_ring[of_slot] = 0.0
             else:
                 self._flow_ring[of_slot] = flow_t
-        return self._score_from_rings(win_t, owin_t, boxes_t)
+        return self._score_from_rings(win_t, owin_t, box_set)
 
     # -- host helpers ------------------------------------------------------
 
@@ -330,21 +352,24 @@ class StreamingScorer:
         self._v0 = self._n_pushed
         self._scene = int(scene)
 
-    def _stage(self, frame, flow, boxes_pad):
+    def _stage(self, frame, flow, boxes_pad, nb):
         """One push's host inputs on the device: (frame, flow or None,
-        ring slots, window indices, boxes)."""
+        ring slots, window indices, box set: the boxes, the row set of
+        their first nb and nb)."""
         pos = self._n_pushed - self._v0
         slot = self._n_pushed % self._rlen
         of_slot = self._n_pushed % self.R_of
-        win_t, owin_t = self._indices(
+        rows, n_valid = _valid_rows([nb], self.K)
+        win_t, owin_t, rows_t = self._indices(
             (self._windows(pos, self._v0, self.ctx, self._rlen), self._rlen),
             (self._windows(pos, self._v0, self.ctx_of, self.R_of), self.R_of),
+            (rows, self.K),
         )
         flow_t = None
         if self.use_flow and flow is not None:
             flow_t = _upload(np.asarray(flow, np.float32), self.device)
         return (_upload(frame, self.device), flow_t, slot, of_slot, win_t,
-                owin_t, _upload(boxes_pad, self.device))
+                owin_t, (_upload(boxes_pad, self.device), rows_t, n_valid))
 
     @torch.no_grad()
     def push(self, frame: np.ndarray, boxes: np.ndarray,
@@ -360,7 +385,7 @@ class StreamingScorer:
                 frame = self._norm_frame(frame)
                 self._ensure_rings(*frame.shape[:2])
                 boxes_pad, nb = self._pad_boxes(boxes)
-                args = self._stage(frame, flow, boxes_pad)
+                args = self._stage(frame, flow, boxes_pad, nb)
             out = self._step(*args)
             self._n_pushed += 1
             return self._emit(out, boxes_pad, nb, self.use_flow and flow is None)
@@ -394,11 +419,13 @@ class StreamingScorer:
                                 for g in glob])
                 owin = np.stack([self._v0 + _predict_window(g - self._v0, self.ctx_of)
                                  for g in glob])
-                win_t, owin_t, keep_t, okeep_t = self._indices(
+                rows, n_valid = _valid_rows(nbs, self.K)
+                win_t, owin_t, keep_t, okeep_t, rows_t = self._indices(
                     (staged(win, rlen), rlen + k),
                     (staged(owin, self.R_of), self.R_of + k),
                     (glob[-rlen:] % rlen, rlen),
                     (glob[-self.R_of:] % self.R_of, self.R_of),
+                    (rows, k * self.K),
                 )
                 frames_t = self._color(_upload(frames, self.device))
                 if self.use_flow:
@@ -414,7 +441,7 @@ class StreamingScorer:
             if self.use_flow:
                 fsrc = torch.cat([self._flow_ring, flows_t])
                 owd = fsrc.index_select(0, owin_t).reshape((k, -1) + fsrc.shape[1:])
-            outs = self._score_windows(wd, owd, boxes_t)
+            outs = self._score_windows(wd, owd, (boxes_t, rows_t, n_valid))
             # the rings keep the newest frames (and flow maps)
             self._ring[keep_t] = frames_t[-rlen:]
             if self.use_flow:
@@ -429,17 +456,18 @@ class StreamingScorer:
     def time_device_step(self, frame: np.ndarray, boxes: np.ndarray,
                          k: int = 64, repeats: int = 3) -> float:
         """Device-time twin of push(): best ms per step of the device step
-        alone (ring writes, gathers, STC and the ensemble), its inputs
-        staged on the device once and k steps chained per repeat
-        (serve._common._time_device_chain). Excludes the host's share of
-        a push: preparing and uploading its inputs, and the download. A
-        flow-fusing model is timed with a zero flow map. Runs on clones
-        of the rings: the scorer's serving state is untouched."""
+        alone (ring writes, gathers, STC and the ensemble over the valid
+        rows of `boxes`), its inputs staged on the device once and k
+        steps chained per repeat (serve._common._time_device_chain).
+        Excludes the host's share of a push: preparing and uploading its
+        inputs, and the download. A flow-fusing model is timed with a
+        zero flow map. Runs on clones of the rings: the scorer's serving
+        state is untouched."""
         frame = self._norm_frame(frame)
         self._ensure_rings(*frame.shape[:2])
-        boxes_pad, _ = self._pad_boxes(boxes)
+        boxes_pad, nb = self._pad_boxes(boxes)
         zero = np.zeros(frame.shape[:2] + (2,), np.float32)
-        args = self._stage(frame, zero if self.use_flow else None, boxes_pad)
+        args = self._stage(frame, zero if self.use_flow else None, boxes_pad, nb)
         with torch.no_grad():
             return _time_device_chain(self, lambda: self._step(*args), k, repeats)
 
