@@ -284,6 +284,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the cost of the split, the copies and the reductions on one card,
      not a two-card speed (the machine has one card).
 
+ 15. detecting fleet: DetectingFleetScorer.push_tick on the card, the
+     benchmark cell's shape: 8 cameras of 480x856 BGR frames (a seeded
+     noise texture with 16 moving rectangles a camera), a seeded random
+     R101 Cascade R-CNN calibrated as phase 11's (12 RoIs a frame of the
+     first tick over a 0.5 person score) and the raw-only ensemble (5raw
+     nf=32, patch 32, 64 box slots), 6 ticks. Launch counts reset just
+     before the ticks: two nms_scan launches a tick (the RPN's scan and
+     the multiclass step's), no K1; finite scores, the counters, and the
+     last tick's kept boxes equal to detect_many's detections through
+     filter_detections and del_cover_bboxes. The (R, K, K) masks and
+     valid flags the last tick handed greedy_keep (RPN (40, 1000, 1000),
+     multiclass (640, 1000, 1000)) through csrc/nms_scan.cu, equal to the
+     CPU's fixed point, timed (CUDA events) beside the fixed point on the
+     card and the bound of the bytes it reads (the kept candidates' mask
+     rows). The {"kernels": [...]} record's nms_scan entry is the RPN's.
+
 The second-to-last line of output is the card's nvidia-smi line, the one
 before it the {"kernels": [...]} record, and the last line
 {"ok": true, "device": {...}}.
@@ -334,6 +350,7 @@ from vec_vad_torch.pipeline import TrainedBlock, VadModel
 from vec_vad_torch.runtime.artifacts import load_vad_model
 from vec_vad_torch.score import scoring as score_mod
 from vec_vad_torch.serve import (
+    DetectingFleetScorer,
     FlowStreamingScorer,
     MotionStreamingScorer,
     MultiCameraFlowScorer,
@@ -473,6 +490,14 @@ DT_TIMED = 5  # timed batches
 # into the final boxes (75-83 % within 0.13 px on an H100)
 DT_REL = 1e-4
 DT_MATCHED = 0.95
+# the detecting fleet (phase 15): DetectingFleetScorer at the benchmark
+# cell's shape (8 ShanghaiTech cameras at 480x856, 64 box slots) with the
+# raw-only ensemble at the flagship width; the first tick warms
+DF_CAMERAS = 8
+DF_TICKS = 6
+DF_OBJECTS = 16  # moving rectangles a camera
+DF_TIMED = 10  # timed scans of each captured mask (the fixed point: 2)
+HBM_BYTES_S = 3.35e12  # H100 SXM's memory rate
 # the model grid (phase 12): a 2x2 grid over a seeded synthetic tree at
 # UCSDped2's 240x360 (6 + 4 videos of 100 frames), in avenue's layout so
 # that run_test reads its pixel GT through scipy (the card's machine has
@@ -740,14 +765,16 @@ def kernel_bwd_phase(rng) -> dict:
     return record
 
 
-def make_model(nf: int, patch: int, seed: int) -> VadModel:
-    """A two-stream 5raw1of VadModel (one block) with random weights and
-    seeded training-score vectors, all from numpy seeds."""
+def make_model(nf: int, patch: int, seed: int, dataset_name: str = "UCSDped2",
+               use_flow: bool = True) -> VadModel:
+    """A two-stream 5raw1of VadModel (one block; raw-only 5raw without
+    use_flow) with random weights and seeded training-score vectors, all
+    from numpy seeds."""
     cfg = PipelineConfig(
-        dataset_name="UCSDped2",
+        dataset_name=dataset_name,
         fore=ForegroundConfig(patch_size=patch, max_boxes_per_frame=64),
         model=CompletionConfig(nf=nf, context_frame_num=4, context_of_num=0,
-                               use_flow=True),
+                               use_flow=use_flow),
     )
     sd = init_completion_state(make_completion_net(cfg.model, device="cpu"), seed)
     rng = np.random.default_rng(seed)
@@ -2732,14 +2759,14 @@ def foreground_phase() -> dict:
 # -- phase 11: the appearance detector -------------------------------------
 
 
-def write_detector_checkpoint(frames) -> dict:
+def calibrated_cascade_state(frames, seed: int):
     """The seeded random R101 Cascade R-CNN (mdet.random_cascade_state)
     with the regression weights (rpn_reg, each stage's fc_reg) and the
     other classes' fc_cls rows scaled by DT_OTHER_SCALE and the person
     bias of every stage shifted so that DT_TARGET RoIs a frame of
-    `frames` clear a 0.5 person score, saved as an mmcv checkpoint at
-    DT_CKPT. Returns what it printed."""
-    sd = mdet.random_cascade_state(DT_DEPTH, SEED + 20)
+    `frames` clear a 0.5 person score. Returns (state dict, {"params",
+    "shift", "valid"})."""
+    sd = mdet.random_cascade_state(DT_DEPTH, seed)
     other = torch.arange(mdet.NUM_CLASSES) != DT_PERSON
     # random regression weights throw the boxes to the image's borders,
     # degenerate there; scaled down, they keep near their anchors, as a
@@ -2760,11 +2787,18 @@ def write_detector_checkpoint(frames) -> dict:
     shift = -float(top[DT_TARGET * len(frames)])
     for i in range(3):
         sd[f"bbox_head.{i}.fc_cls.bias"][DT_PERSON] += shift
-    DT_CKPT.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"state_dict": sd, "meta": {"seed": SEED + 20, "person_shift": shift}},
-               DT_CKPT)
     del det
-    return {"params": n_params, "shift": shift, "valid": int(m.shape[0])}
+    return sd, {"params": n_params, "shift": shift, "valid": int(m.shape[0])}
+
+
+def write_detector_checkpoint(frames) -> dict:
+    """calibrated_cascade_state(frames) saved as an mmcv checkpoint at
+    DT_CKPT. Returns what it printed."""
+    sd, made = calibrated_cascade_state(frames, SEED + 20)
+    DT_CKPT.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"state_dict": sd, "meta": {"seed": SEED + 20,
+                                           "person_shift": made["shift"]}}, DT_CKPT)
+    return made
 
 
 def match_rows(a, b, tol) -> float:
@@ -2822,8 +2856,9 @@ def detector_phase() -> None:
                                  rel(st_g["deltas"][i], deltas.reshape(st_g["deltas"][i].shape))))
         bb = mdet.delta2bbox(st_g["rois"][-1].cpu(), st_g["deltas"][-1].cpu(),
                              mdet.STAGE_STDS[-1], img_hw)
-        forced = mdet.multiclass_nms(st_g["bboxes"].cpu(), st_g["scores"].cpu(),
-                                     st_g["valid"].cpu(), 0.05, 0.5, 100)
+        forced = mdet.multiclass_nms(mdet.true_div(st_g["bboxes"].cpu(), scale),
+                                     st_g["scores"].cpu(), st_g["valid"].cpu(), 0.05, 0.5,
+                                     100)
     box_rel = rel(st_g["bboxes"], bb)
     for g, w in zip((gb, gs, gl, gok), forced):
         check(torch.equal(g.cpu(), w), "multiclass NMS on the card's boxes differs on the CPU")
@@ -2966,6 +3001,138 @@ def detector_phase() -> None:
     profile_calls(f"detector: (e) detect_many of {DT_BATCH} frames",
                   lambda: det.detect_many(batch))
     DT_CKPT.unlink()
+
+
+def moving_frames(seed: int, ticks: int, cams: int, hw, objects: int) -> np.ndarray:
+    """(ticks, cams, H, W, 3) uint8 BGR: a seeded noise texture with
+    `objects` rectangles a camera (sides 24-120 px) moving 1-6 px a tick."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    out = np.repeat(rng.integers(0, 256, (1, cams, H, W, 3), dtype=np.uint8), ticks, 0)
+    for c in range(cams):
+        wh = rng.integers(24, 121, (objects, 2))
+        xy0 = rng.uniform(0, 1, (objects, 2)) * (W, H)
+        vel = rng.uniform(1, 6, (objects, 2)) * rng.choice((-1, 1), (objects, 2))
+        colour = rng.integers(0, 256, (objects, 3), dtype=np.uint8)
+        for t in range(ticks):
+            for k, (x, y) in enumerate(((xy0 + vel * t) % (W, H)).astype(int)):
+                out[t, c, y:y + wh[k, 1], x:x + wh[k, 0]] = colour[k]
+    return out
+
+
+def nms_scan_bytes(valid, keep) -> int:
+    """Bytes the scan reads and writes for rows of flags `valid` (R, K) and
+    their result `keep`: each row's valid flags read and keep flags
+    written, and for each kept candidate i of a row whose last valid
+    candidate is n - 1 its mask row over[i, i+1:n]."""
+    R, K = keep.shape
+    pos = torch.arange(K, device=keep.device)
+    n = torch.where(valid, pos + 1, 0).amax(-1)  # one past the last valid
+    rows = torch.where(keep, (n[:, None] - pos - 1).clamp_min(0), 0)
+    return int(2 * R * K + rows.sum())
+
+
+def detect_fleet_phase() -> dict:
+    """DetectingFleetScorer.push_tick on the card at the benchmark cell's
+    shape, and the greedy-NMS scan (csrc/nms_scan.cu) on the masks that
+    route's own tick built (module docstring, phase 15). Returns the
+    {"kernels"} entry of nms_scan."""
+    C, hw = DF_CAMERAS, FG_HW
+    frames = moving_frames(SEED + 31, DF_TICKS, C, hw, DF_OBJECTS)
+    t0 = time.perf_counter()
+    sd, made = calibrated_cascade_state(frames[0], SEED + 30)
+    det = mdet.MMDetCascadeDetector(load_mmdet_state(mdet.CascadeRCNN(DT_DEPTH), sd),
+                                    device="cuda")
+    model = make_model(SERVE_MODEL["nf"], SERVE_MODEL["patch"], SERVE_MODEL["seed"],
+                       dataset_name="ShanghaiTech", use_flow=False)
+    spec = model.cfg.dataset
+    scorer = DetectingFleetScorer.from_model(model, n_cameras=C, detector=det,
+                                             max_boxes=64, device="cuda")
+    scorer.start_video()
+    print(f"detect fleet: R{DT_DEPTH} Cascade R-CNN, {made['params']:,} parameters (seed "
+          f"{SEED + 30}), person bias {made['shift']:.4f}; {C} cameras at {hw} with "
+          f"{DF_OBJECTS} moving rectangles each; set-up {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # the route's run, nms_scan's launches counted from just before it; the
+    # last tick's scan inputs captured as the route built them
+    keep_fn, scans = mdet.greedy_keep, []
+    lat, scores, kept = [], [], []
+
+    def capturing(over, valid, **kw):
+        if len(lat) == DF_TICKS - 1:
+            scans.append((over.clone(), valid.clone()))
+        return keep_fn(over, valid, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    mdet.greedy_keep = capturing
+    try:
+        for t in range(DF_TICKS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            scores.append(scorer.push_tick(frames[t]))
+            lat.append((time.perf_counter() - t1) * 1e3)
+            kept.append(scorer.last_boxes)
+    finally:
+        mdet.greedy_keep = keep_fn
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches.get("nms_scan", 0) == 2 * DF_TICKS,
+          f"nms_scan launches {launches} for {DF_TICKS} ticks (two a forward)")
+    check(not launches.get("correlation"), "K1 in the detecting fleet")
+    check(len(scans) == 2, f"{len(scans)} scans captured in a tick")
+    flat = np.asarray(scores, np.float64)
+    check(flat.shape == (DF_TICKS, C) and np.isfinite(flat).all(), f"scores {flat}")
+    n_box = np.array([[len(b) for b in k] for k in kept])
+    check(scorer.frames_detected == DF_TICKS * C and scorer.boxes_kept == n_box.sum(),
+          f"counters {scorer.frames_detected}, {scorer.boxes_kept}")
+    # the route's kept boxes: detect_many's detections filtered and suppressed
+    for c, (b, sc, _) in enumerate(det.detect_many(frames[-1])):
+        want = del_cover_bboxes(filter_detections(b, sc, spec.ap_score_thr,
+                                                  spec.ap_min_area), spec.cover_thr)[:64]
+        check(np.array_equal(kept[-1][c], want), f"camera {c}'s kept boxes")
+    print(f"detect fleet: {DF_TICKS} ticks, tick ms (synchronised) first {lat[0]:.1f}, "
+          f"then median {np.median(lat[1:]):.1f}; kept boxes a frame mean "
+          f"{n_box.mean():.2f} (min {n_box.min()}, max {n_box.max()}); the last tick's "
+          f"kept boxes equal detect_many + filter_detections + del_cover_bboxes; peak "
+          f"device memory {peak / 2**30:.2f} GiB; nms_scan launches {launches['nms_scan']}",
+          flush=True)
+
+    # the scan on the route's own masks: exact against the CPU's fixed
+    # point, timed against the fixed point on the card
+    record = None
+    for what, (over, valid) in zip(("RPN", "multiclass"), scans):
+        R, K = valid.numel() // valid.shape[-1], valid.shape[-1]
+        o, v = over.reshape(R, K, K), valid.reshape(R, K)
+        got = mdet._nms_scan(o, v)
+        t1 = time.perf_counter()
+        want = mdet._fixed_point(o.cpu(), v.cpu())
+        cpu_s = time.perf_counter() - t1
+        check(torch.equal(got.cpu(), want), f"nms_scan on the {what} masks")
+        with full_f32():
+            ms = cuda_ms(lambda: mdet._nms_scan(o, v), reps=DF_TIMED)
+            plain_ms = cuda_ms(lambda: mdet._fixed_point(o, v), reps=2, warm=1)
+        nbytes = nms_scan_bytes(v, got)
+        bound_ms = 1e3 * nbytes / HBM_BYTES_S
+        print(f"kernel nms_scan {what} ({R}, {K}, {K}) from the route's tick: equal to "
+              f"the CPU's fixed point ({cpu_s:.2f} s there); {int(v.sum())} valid, "
+              f"{int(got.sum())} kept; ms={ms:.6f} plain_ms={plain_ms:.6f} (the fixed "
+              f"point on the card) bound_ms={bound_ms:.6f} (bytes: {nbytes:,}, the kept "
+              f"candidates' mask rows, flags in and out, at {HBM_BYTES_S / 1e12} TB/s; "
+              f"the scan waits a barrier a kept candidate), {ms / bound_ms:.1f}x the bound",
+              flush=True)
+        if record is None:
+            record = {"name": "nms_scan", "route": "cuda",
+                      "source": "vec_vad_torch/csrc/nms_scan.cu",
+                      "replaces": "vec_vad_tpu/fore/mmdet_detector.py:170",
+                      "launches": launches["nms_scan"], "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": "bytes", "max_abs_err": 0.0,
+                      "library_ms": None}
+    del scorer, det, scans
+    torch.cuda.empty_cache()
+    print(json.dumps({"kernels": [record]}), flush=True)
+    return record
 
 
 def block_close(got, want) -> bool:
@@ -4093,7 +4260,11 @@ def main() -> int:
 
     # -- mesh phase: every route that takes a device mesh, on the card twice
     ms = mesh_phase()
-    phase_done("mesh", t_phase)
+    t_phase = phase_done("mesh", t_phase)
+
+    # -- detecting-fleet phase: the Cascade R-CNN inside the serving tick ---
+    nms = detect_fleet_phase()
+    phase_done("detect-fleet", t_phase)
 
     rec.update(max_abs_err=max(rec["max_abs_err"], hook_err, train["fwd_err"],
                                calc["fwd_err"], surf["fwd_err"], fg["fwd_err"],
@@ -4122,6 +4293,7 @@ def main() -> int:
          "source": "vec_vad_torch/csrc/correlation_bwd.cu",
          "replaces": "vec_vad_tpu/models/flownet/ops.py:275",
          "launches": k2, **rec_bwd, "library_ms": None},
+        nms,
     ]}
     print(json.dumps(record))
     print(card)

@@ -589,6 +589,33 @@ def test_detector_nms_on_card_equals_cpu(cuda):
         assert torch.equal(g.cpu(), w)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,K", [(40, 1000), (3, 1), (5, 37), (2, 1300)])
+def test_nms_scan_kernel_equals_fixed_point(cuda, R, K):
+    """csrc/nms_scan.cu (greedy_keep on the card) against the CPU's
+    fixed-point sweep: random masks with invalid candidates among and
+    after the valid ones, a row with none valid, and one chain where each
+    candidate overlaps only the next (every other one kept); one launch."""
+    from vec_vad_torch import kernels
+    from vec_vad_torch.fore import mmdet_detector as det
+
+    g = torch.Generator().manual_seed(R * 7919 + K)
+    over = torch.rand((R, K, K), generator=g) < 0.02
+    valid = torch.rand((R, K), generator=g) < 0.9
+    valid[:, int(0.8 * K):] = False
+    valid[0] = False
+    over[-1] = False
+    idx = torch.arange(K - 1)
+    over[-1, idx, idx + 1] = True
+    valid[-1] = True
+    want = det.greedy_keep(over, valid)
+    kernels.reset_launch_counts()
+    got = det.greedy_keep(over.to(cuda), valid.to(cuda))
+    assert kernels.launch_counts["nms_scan"] == 1
+    assert torch.equal(got.cpu(), want)
+    assert not want[0].any() and torch.equal(want[-1], torch.arange(K) % 2 == 0)
+
 @pytest.mark.cuda
 def test_detector_roi_align_pyramid_on_card(cuda):
     """RoIAlign v1, each RoI on its own level, on the card against the CPU
@@ -641,7 +668,8 @@ def test_small_detect_on_card_matches_cpu(cuda):
                                         device=d, **cfg) for d in ("cpu", cuda)}
     frames = np.random.default_rng(5).integers(0, 256, (2, 48, 64, 3), dtype=np.uint8)
     st = {d: {} for d in dets}
-    out = {d: dets[d].run(frames, stages=st[d])[0] for d in dets}
+    runs = {d: dets[d].run(frames, stages=st[d]) for d in dets}
+    out, scale = {d: r[0] for d, r in runs.items()}, runs["cpu"][1]
 
     def rel(a, b):
         return float((a.cpu() - b).abs().max() / b.abs().max())
@@ -656,8 +684,9 @@ def test_small_detect_on_card_matches_cpu(cuda):
             logits, _ = head(det.roi_align_pyramid(st["cpu"]["pyramid"][:4],
                                                    st[cuda]["rois"][i].cpu()))
             assert rel(st[cuda]["logits"][i], logits.reshape(st[cuda]["logits"][i].shape)) <= 1e-4
-        forced = det.multiclass_nms(st[cuda]["bboxes"].cpu(), st[cuda]["scores"].cpu(),
-                                    st[cuda]["valid"].cpu(), 0.05, 0.5, 20)
+        forced = det.multiclass_nms(det.true_div(st[cuda]["bboxes"].cpu(), scale),
+                                    st[cuda]["scores"].cpu(), st[cuda]["valid"].cpu(),
+                                    0.05, 0.5, 20)
     for g, w in zip(out[cuda], forced):  # the CPU's NMS on the card's boxes
         assert torch.equal(g.cpu(), w)
     # the independent runs: the three stages carry the proposals' 1e-4
@@ -667,6 +696,84 @@ def test_small_detect_on_card_matches_cpu(cuda):
     torch.testing.assert_close(gs.cpu()[wok], ws[wok], rtol=1e-3, atol=1e-7)
     torch.testing.assert_close(gb.cpu()[wok], wb[wok], rtol=0, atol=1e-2)
 
+
+
+@pytest.mark.cuda
+def test_detecting_fleet_on_card_matches_cpu(cuda, full_f32):
+    """DetectingFleetScorer at C = 2 on the card against its CPU twin
+    (random R50 at 64x96 frames, img_scale (160, 96), tens of proposals,
+    the person bias raised so that boxes survive), stage by stage from the
+    card's own inputs: the pyramid and each stage's logits within 1e-4 of
+    the largest (the detector tests' bound), the CPU's multiclass NMS on
+    the card's boxes equal to the card's, the route's kept boxes equal to
+    the CPU's filter and suppression of the card's detections, and the
+    card's scores within 2e-4 of the largest of a CPU fleet given those
+    boxes."""
+    import dataclasses
+
+    from vec_vad_torch.config import DATASETS
+    from vec_vad_torch.fore import mmdet_detector as det
+    from vec_vad_torch.fore.detector import filter_detections
+    from vec_vad_torch.fore.mmdet_import import load_mmdet_state
+    from vec_vad_torch.fore.suppress import del_cover_bboxes
+    from vec_vad_torch.serve import DetectingFleetScorer, MultiCameraScorer
+
+    spec, person = DATASETS["ShanghaiTech"], 1
+    sd = det.random_cascade_state(50, seed=4)
+    other = torch.arange(det.NUM_CLASSES) != person
+    sd["rpn_head.rpn_reg.weight"] *= 1e-2
+    for i in range(3):
+        sd[f"bbox_head.{i}.fc_cls.weight"][other] *= 1e-2
+        sd[f"bbox_head.{i}.fc_reg.weight"] *= 1e-2
+    cfg = dict(nms_pre=60, nms_post=40, max_num=40, max_per_img=20, img_scale=(160, 96))
+    frames = np.random.default_rng(6).integers(0, 256, (3, 2, 64, 96, 3), dtype=np.uint8)
+    st = {}
+    det.MMDetCascadeDetector(load_mmdet_state(det.CascadeRCNN(50), sd), device="cpu",
+                             **cfg).run(frames.reshape(6, 64, 96, 3), stages=st)
+    m = (sum(st["logits"]) / 3.0)[st["valid"]]
+    margin = m[:, person] - torch.logsumexp(m[:, other], -1)
+    shift = -float(torch.sort(margin, descending=True)[0][48])
+    for i in range(3):
+        sd[f"bbox_head.{i}.fc_cls.bias"][person] += shift
+    dets = {d: det.MMDetCascadeDetector(load_mmdet_state(det.CascadeRCNN(50), sd),
+                                        device=d, **cfg) for d in ("cpu", cuda)}
+    model = _serving_model(use_flow=False)
+    model = dataclasses.replace(model, cfg=dataclasses.replace(model.cfg,
+                                                               dataset_name="ShanghaiTech"))
+    card = DetectingFleetScorer.from_model(model, n_cameras=2, detector=dets[cuda],
+                                           device=cuda)
+    cpu = MultiCameraScorer.from_model(model, n_cameras=2, device="cpu")
+    card.start_video()
+    cpu.start_video()
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    got, want, kept = [], [], 0
+    for t in range(3):
+        sg, sc = {}, {}
+        (gb, gs, gl, gok), scale = dets[cuda].run(frames[t], stages=sg)
+        dets["cpu"].run(frames[t], stages=sc)
+        for a, b in zip(sg["pyramid"], sc["pyramid"]):
+            assert rel(a, b) <= 1e-4
+        with torch.no_grad():
+            for i, head in enumerate(dets["cpu"].model.bbox_head):
+                logits, _ = head(det.roi_align_pyramid(sc["pyramid"][:4], sg["rois"][i].cpu()))
+                assert rel(sg["logits"][i], logits.reshape(sg["logits"][i].shape)) <= 1e-4
+            forced = det.multiclass_nms(det.true_div(sg["bboxes"].cpu(), scale),
+                                        sg["scores"].cpu(), sg["valid"].cpu(), 0.05, 0.5, 20)
+        for g, w in zip((gb, gs, gl, gok), forced):
+            assert torch.equal(g.cpu(), w)
+        got.append(card.push_tick(frames[t]))
+        host = det.per_frame_detections(*(x.cpu().numpy() for x in (gb, gs, gl, gok)))
+        for c, (b, s, _) in enumerate(host):
+            np.testing.assert_array_equal(card.last_boxes[c], del_cover_bboxes(
+                filter_detections(b, s, spec.ap_score_thr, spec.ap_min_area),
+                spec.cover_thr)[:card.K])
+            kept += len(card.last_boxes[c])
+        want.append(cpu.push_tick(frames[t], card.last_boxes))
+    assert kept > 0 and card.boxes_kept == kept and card.frames_detected == 6
+    assert _rel(np.asarray(got), np.asarray(want)) <= 2e-4
 
 def _grid_cfg(use_flow=False):
     from vec_vad_torch.config import CompletionConfig

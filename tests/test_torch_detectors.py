@@ -275,11 +275,36 @@ def _jax_stages(jd, v, img_u8, img_hw, cfg):
     return out
 
 
+def _jax_v1_detections(st, scale, cfg):
+    """Detections (boxes, scores, labels) of one frame from _jax_stages'
+    outputs in mmdet v1's get_det_bboxes order, the port's: the final
+    boxes divided by the scale, then vec_vad_tpu's per-class nms_pick and
+    the top max_per_img over the classes, as its cascade_detect composes
+    them (which runs that NMS before the division)."""
+    bboxes = jnp.asarray(np.asarray(st["bboxes"]) / np.float32(scale))
+    scores = jax.nn.softmax(sum(st["logits"]) / 3.0, axis=-1)
+    thr, n = cfg["score_thr"], cfg["max_per_img"]
+
+    def per_class(cls_scores):
+        s = jnp.where((cls_scores > thr) & st["valid"], cls_scores, -jnp.inf)
+        idx, ok = j_det.nms_pick(bboxes, s, 0.5, n)
+        return idx, jnp.where(ok, s[idx], -jnp.inf)
+
+    idxs, kept = jax.vmap(per_class, in_axes=1)(scores[:, 1:])
+    top, pick = jax.lax.top_k(kept.reshape(-1), n)
+    ok = np.asarray(top > -jnp.inf)
+    labels = np.asarray(pick // idxs.shape[1])
+    return (np.asarray(bboxes[idxs.reshape(-1)[pick]])[ok], np.asarray(top)[ok],
+            labels[ok])
+
+
 def test_detect_stage_by_stage_matches_jax(detectors):
     """Pyramid, proposals, each stage's rois and logits (1e-4 relative),
     and the final detections (same count and labels, scores 1e-4, boxes
-    within 1e-3 px) against vec_vad_tpu on the same frame, so a threshold
-    flip is located rather than hidden."""
+    within 1e-3 px) against vec_vad_tpu's on the same frame, so a
+    threshold flip is located rather than hidden; its multiclass NMS on
+    the boxes divided by the scale first, as mmdet v1 and the port run
+    it."""
     jd, td, frames = detectors
     padded, img_hw, scale = j_det.preprocess(frames[0], *SMALL_SCALE)
     want = jax.jit(lambda v, im: _jax_stages(jd, v, im, img_hw, SMALL_CFG))(
@@ -295,7 +320,7 @@ def test_detect_stage_by_stage_matches_jax(detectors):
         assert _rel(got["rois"][stage][0].numpy(), want["rois"][stage]) <= STAGE_REL
         assert _rel(got["logits"][stage][0].numpy(), want["logits"][stage]) <= STAGE_REL
     assert _rel(got["bboxes"][0].numpy(), want["bboxes"]) <= STAGE_REL
-    jb, js, jl = jd.detect(frames[0])
+    jb, js, jl = _jax_v1_detections(want, scale, SMALL_CFG)
     tb, ts, tl = td.detect(frames[0])
     assert len(jl) > 0 and len(tl) == len(jl)
     np.testing.assert_array_equal(tl, jl)
@@ -305,8 +330,15 @@ def test_detect_stage_by_stage_matches_jax(detectors):
 
 
 def test_detect_many_matches_jax_and_detect(detectors):
+    """detect_many against vec_vad_tpu's stages with mmdet v1's
+    get_det_bboxes order (_jax_v1_detections) frame by frame, and against
+    the port's detect of each frame alone."""
     jd, td, frames = detectors
-    want = jd.detect_many(frames)
+    padded = [j_det.preprocess(f, *SMALL_SCALE) for f in frames]
+    img_hw, scale = padded[0][1:]
+    stages = jax.jit(lambda v, im: _jax_stages(jd, v, im, img_hw, SMALL_CFG))
+    want = [_jax_v1_detections(stages(jd.variables, jnp.asarray(p)), scale, SMALL_CFG)
+            for p, _, _ in padded]
     got = td.detect_many(frames)
     for i, ((b, s, l), (jb, js, jl)) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(l, jl)

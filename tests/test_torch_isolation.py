@@ -354,7 +354,7 @@ def test_kernel_sources_build_by_content():
     """Every csrc source has its own library name, keyed by its content,
     under the ignored build directory (nothing is built here)."""
     names = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
-    assert names == ["correlation", "correlation_bwd"]
+    assert names == ["correlation", "correlation_bwd", "nms_scan"]
     for name in names:
         path = kernels._lib_path(name)
         assert path.parent == ROOT / "build" / "kernels"

@@ -29,7 +29,9 @@ device, contours on the host, and the config's `mmdet_checkpoint`, the
 converted Cascade R-CNN, on the device for the obj_det modes; without a
 fixture, train and test compute the same boxes). `serve` streams the test split through the online
 scorers (`--live-flow`: flow computed in the loop; `--motion`: boxes
-computed in the loop, with `--live-flow` both; `--cameras C`: a fleet).
+computed in the loop, with `--live-flow` both; `--cameras C`: a fleet,
+which in obj_det mode with an `mmdet_checkpoint` runs the Cascade R-CNN
+inside every tick, serve.DetectingFleetScorer).
 A config with h_block/w_block above 1 trains and scores its blocks folded
 together (train.grid_trainer). `demo` runs train and test on a synthetic
 tree (vec_vad_torch.demo); `export-torch` writes the trained grid as the
@@ -167,22 +169,41 @@ def _build_live_flow(args, device):
     return net, {"flow_compute_dtype": fdt}
 
 
+def _detects_in_tick(cfg) -> bool:
+    """Whether `serve --cameras C` finds its boxes in the tick: obj_det
+    mode with an mmdet checkpoint configured."""
+    return cfg.fore.extraction_mode == "obj_det" and bool(cfg.fore.mmdet_checkpoint)
+
+
 def _serve_fleet(cfg, model, data, args, live: bool, device) -> int:
     """`serve --cameras C`: every camera streams the test split's first
     video in lockstep, a tick at a time. Identical per-camera inputs
     double as a cross-camera consistency check; reports per-tick latency
-    and aggregate fleet fps."""
+    and aggregate fleet fps. In obj_det mode with an mmdet checkpoint the
+    fleet detects its boxes in every tick (DetectingFleetScorer) and
+    reports the boxes it kept a frame."""
     import time
 
     import numpy as np
 
-    from vec_vad_torch.serve import MultiCameraFlowScorer, MultiCameraScorer
+    from vec_vad_torch.serve import (
+        DetectingFleetScorer,
+        MultiCameraFlowScorer,
+        MultiCameraScorer,
+    )
 
     C = int(args.cameras)
     ln = int(data.index.video_lengths[0])
     n = ln if args.frames <= 0 else min(args.frames, ln)
+    detect = _detects_in_tick(cfg)
 
-    if live:
+    if detect:
+        from vec_vad_torch.runner import _mmdet_detector
+
+        scorer = DetectingFleetScorer.from_model(
+            model, n_cameras=C, device=device,
+            detector=_mmdet_detector(cfg.fore.mmdet_checkpoint, str(device)))
+    elif live:
         fnet, fkw = _build_live_flow(args, device)
         scorer = MultiCameraFlowScorer.from_model(
             model, n_cameras=C, flow_net=fnet, device=device, **fkw)
@@ -213,16 +234,17 @@ def _serve_fleet(cfg, model, data, args, live: bool, device) -> int:
     for t in range(n):
         frame = np.asarray(data.frames[t])
         frames = np.broadcast_to(frame, (C,) + frame.shape)
-        boxes = [data.boxes[t]] * C
         t0 = time.perf_counter()
-        if live:
-            out = scorer.push_tick(frames, boxes)
+        if detect:
+            out = scorer.push_tick(frames)
+        elif live:
+            out = scorer.push_tick(frames, [data.boxes[t]] * C)
         else:
             flows = None
             if scorer.use_flow and data.flow is not None:
                 flow = np.asarray(data.flow[t])
                 flows = np.broadcast_to(flow, (C,) + flow.shape)
-            out = scorer.push_tick(frames, boxes, flows=flows)
+            out = scorer.push_tick(frames, [data.boxes[t]] * C, flows=flows)
         lat.append(time.perf_counter() - t0)
         if out is not None:
             rows.append(out)
@@ -242,6 +264,10 @@ def _serve_fleet(cfg, model, data, args, live: bool, device) -> int:
         f"aggregate; cross-camera score spread {spread:.2e} "
         f"(max |score| {peak:.4e})"
     )
+    if detect:
+        print(f"detected in the tick: {scorer.boxes_kept} boxes kept over "
+              f"{scorer.frames_detected} frames "
+              f"({scorer.boxes_kept / max(scorer.frames_detected, 1):.2f} a frame)")
     return 0
 
 
@@ -279,10 +305,17 @@ def cmd_serve(args) -> int:
             "--motion composes with single-camera serving only "
             "(not --cameras)"
         )
+    fleet = int(args.cameras) > 1
+    if fleet and live and _detects_in_tick(cfg):
+        raise SystemExit(
+            "--live-flow does not compose with the fleet that detects its "
+            "boxes in the tick (obj_det mode with an mmdet_checkpoint)"
+        )
     device = resolve_device(args.device)
     model = load_vad_model(model_path(cfg, args.base))
-    data = load_split(cfg, args.base, "test", device=device)
-    if int(args.cameras) > 1:
+    data = load_split(cfg, args.base, "test", device=device,
+                      boxes=not (fleet and _detects_in_tick(cfg)))
+    if fleet:
         return _serve_fleet(cfg, model, data, args, live, device)
     if live and motion:
         # fully self-contained: boxes AND flow computed in the loop
@@ -823,7 +856,9 @@ def main(argv=None) -> int:
     p.add_argument(
         "--cameras", type=int, default=1,
         help="fleet mode: C cameras stream the first test video in "
-        "lockstep, scored together a tick (MultiCameraScorer)",
+        "lockstep, scored together a tick (MultiCameraScorer; in obj_det "
+        "mode with an mmdet_checkpoint the Cascade R-CNN finds each tick's "
+        "boxes, DetectingFleetScorer)",
     )
     p.add_argument(
         "--flow-checkpoint", default=None,

@@ -22,13 +22,20 @@ checkpoint parity:
     clamped to [0,3] (SingleRoIExtractor.map_roi_levels).
   * class 0 is BACKGROUND; cascade averages the three stages' cls logits
     before one softmax (mmdet/models/detectors/cascade_rcnn.py simple_test).
+  * the final boxes are divided by the scale factor BEFORE the multiclass
+    NMS (BBoxHead.get_det_bboxes with rescale=True), so its +1 areas see
+    the original frame's pixels. The JAX package runs that NMS on the
+    resized image's boxes and divides after; near an IoU of 0.5 the two
+    can keep different boxes.
 
 The form suits the card rather than the TPU, with the same results:
 
-  * NMS is sorted greedy NMS over an IoU-over-threshold mask, swept on the
-    device by a fixed-point iteration (`greedy_keep`): no host sync per
-    pick (JAX: a scan of argmax-pick and suppress steps). It keeps JAX's
-    tie order: a stable descending sort is the order the argmax picks in.
+  * NMS is sorted greedy NMS over an IoU-over-threshold mask, its scan
+    one kernel launch on the card (`greedy_keep`, csrc/nms_scan.cu: a
+    thread block walks a row's candidates in order) and a fixed-point
+    iteration on the CPU: no host sync per pick (JAX: a scan of
+    argmax-pick and suppress steps). It keeps JAX's tie order: a stable
+    descending sort is the order the argmax picks in.
     The RPN's five levels (and a batch's frames) are swept together, the
     80 classes of the multiclass step likewise over one shared IoU mask.
   * RoIAlign aligns each RoI on its own level only, gathering from one
@@ -37,6 +44,11 @@ The form suits the card rather than the TPU, with the same results:
   * The keep-ratio resize runs on the card in cv2's own fixed-point
     arithmetic (`resize_linear_u8`), so the upload is the uint8 frame and
     the machine needs no cv2.
+  * The whole test-time forward, from the uint8 frames on the device to
+    the multiclass NMS, is one module call (`CascadeDetect`), so a caller
+    can bracket it and hook it; inside it the spans `detect.prep`,
+    `detect.backbone`, `detect.rpn`, `detect.stages` and `detect.nms`
+    (runtime.profiling.annotate) hold its sections.
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vec_vad_torch import kernels
 from vec_vad_torch.device import full_f32, resolve_device
 from vec_vad_torch.fore.mmdet_import import (
     BackboneFPN,
@@ -58,6 +71,7 @@ from vec_vad_torch.fore.mmdet_import import (
     load_mmdet_state,
     strip_checkpoint,
 )
+from vec_vad_torch.runtime.profiling import annotate
 
 ANCHOR_RATIOS = (0.5, 1.0, 2.0)
 ANCHOR_SCALES = (8.0,)
@@ -173,9 +187,18 @@ def grid_anchors(stride: int, feat_h: int, feat_w: int) -> np.ndarray:
     return (shift.reshape(-1, 1, 4) + base[None]).reshape(-1, 4)
 
 
+@functools.lru_cache(maxsize=64)
+def _const(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant on `device`, made once and never written: an upload
+    from pageable host memory waits for everything queued on the device,
+    which the detector's forward would otherwise do a dozen times a
+    call. `values` is a number or a tuple."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def delta2bbox(rois, deltas, stds, max_hw):
     """mmdet v1 transforms.delta2bbox (legacy +1 widths), means all-zero."""
-    d = deltas * torch.tensor(stds, dtype=torch.float32, device=deltas.device)
+    d = deltas * _const(tuple(stds), torch.float32, deltas.device)
     max_ratio = abs(float(np.log(WH_RATIO_CLIP)))
     dx, dy = d[..., 0], d[..., 1]
     dw = d[..., 2].clamp(-max_ratio, max_ratio)
@@ -212,7 +235,7 @@ def true_div(x, d: float):
     """x / d with d as a tensor on x's device: given a CPU scalar, the CUDA
     kernel multiplies by d's reciprocal, which can differ from the
     quotient (the CPU's and the JAX package's) in the last bit."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    return x / _const(float(d), x.dtype, x.device)
 
 
 def stable_topk(x, k: int):
@@ -223,26 +246,49 @@ def stable_topk(x, k: int):
 
 
 def greedy_keep(over, valid, check_every: int = 4):
-    """Sorted greedy NMS on the device. over (..., K, K): candidate i
-    (in score order) suppresses j > i where over[i, j]; valid (..., K).
-    Returns keep (..., K): a valid candidate survives unless a surviving
-    earlier one suppresses it. Solved by the fixed-point iteration
-    keep <- valid & ~(keep @ over): position j is final once every
-    position before it is, so it converges, and its fixed point is the
-    greedy solution; the host syncs once per `check_every` iterations."""
+    """Sorted greedy NMS. over (..., K, K): candidate i (in score order)
+    suppresses j > i where over[i, j]; valid (..., K). Returns keep
+    (..., K): a valid candidate survives unless a surviving earlier one
+    suppresses it.
+
+    On the card one launch of csrc/nms_scan.cu walks each row's
+    candidates in order (a thread block a row), so its time does not grow
+    with the longest chain of suppressions. On the CPU the fixed-point
+    iteration keep <- valid & ~(keep @ over): position j is final once
+    every position before it is, so it converges, and its fixed point is
+    the greedy solution; it checks once per `check_every` iterations."""
+    if over.is_cuda:
+        return _nms_scan(over, valid)
+    return _fixed_point(over, valid, check_every)
+
+
+def _fixed_point(over, valid, check_every: int = 4):
+    """greedy_keep's fixed-point iteration, on any device."""
     K = over.shape[-1]
     upper = torch.ones(K, K, dtype=torch.bool, device=over.device).triu(1)
-    # 0/1 sums are exact in half precision's f32 accumulation on the card
-    dt = torch.float16 if over.is_cuda else torch.float32
-    sup = (over & upper).to(dt)
+    sup = (over & upper).to(torch.float32)
     keep = valid
     while True:
         for _ in range(check_every):
             prev = keep
-            hit = torch.matmul(keep.to(dt).unsqueeze(-2), sup).squeeze(-2) > 0
+            hit = torch.matmul(keep.to(torch.float32).unsqueeze(-2), sup).squeeze(-2) > 0
             keep = valid & ~hit
         if torch.equal(keep, prev):
             return keep
+
+
+def _nms_scan(over, valid):
+    """greedy_keep on the card: csrc/nms_scan.cu over the rows of the
+    leading axes."""
+    K = over.shape[-1]
+    if over.shape[-2] != K or valid.shape != over.shape[:-1]:
+        raise ValueError(f"nms scan: over {tuple(over.shape)}, valid {tuple(valid.shape)}")
+    o = over.contiguous().view(torch.uint8)
+    v = valid.contiguous().view(torch.uint8)
+    keep = torch.empty_like(v)
+    kernels.launch("nms_scan", "vv_nms_scan", (o.data_ptr(), v.data_ptr(), keep.data_ptr()),
+                   (v.numel() // K, K), over.device)
+    return keep.view(torch.bool)
 
 
 def _first_survivors(keep, n_pick: int):
@@ -363,7 +409,7 @@ def flat_pyramid(pyramid: Sequence[torch.Tensor], lvl, per_image: int):
     flat = torch.cat([p.permute(0, 2, 3, 1).reshape(-1, p.shape[1]) for p in pyramid])
     hw = [(p.shape[2], p.shape[3]) for p in pyramid]
     starts = np.cumsum([0] + [B * h * w for h, w in hw])[:-1].tolist()
-    t = lambda v, dt: torch.tensor(v, dtype=dt, device=dev)
+    t = lambda v, dt: _const(tuple(v), dt, dev)
     image = torch.arange(B, device=dev).repeat_interleave(per_image)
     base = t(starts, torch.int64)[lvl] + image * t([h * w for h, w in hw], torch.int64)[lvl]
     H = t([float(h) for h, _ in hw], torch.float32)[lvl]
@@ -376,7 +422,7 @@ def roi_align_pyramid(pyramid: Sequence[torch.Tensor], boxes) -> torch.Tensor:
     pyramid: 4 maps (B, C, h, w); boxes (B, K, 4) -> (B*K, C, 7, 7)."""
     lvl = roi_levels(boxes).reshape(-1)
     flat, base, H, W = flat_pyramid(pyramid, lvl, boxes.shape[1])
-    scale = torch.tensor([1.0 / s for s in ROI_STRIDES], device=boxes.device)[lvl]
+    scale = _const(tuple(1.0 / s for s in ROI_STRIDES), torch.float32, boxes.device)[lvl]
     return _roi_align_flat(flat, base, H, W, scale, boxes.reshape(-1, 4), ROI_SIZE, 2)
 
 
@@ -481,27 +527,34 @@ def cascade_stages(model: CascadeRCNN, pyramid, proposals, img_hw,
 
 
 def cascade_detect(model: CascadeRCNN, img, img_hw, anchors_per_level, *,
-                   nms_pre: int = 1000, nms_post: int = 1000,
+                   scale: float, nms_pre: int = 1000, nms_post: int = 1000,
                    max_num: int = 1000, rpn_nms_thr: float = 0.7,
                    score_thr: float = 0.05, rcnn_nms_thr: float = 0.5,
                    max_per_img: int = 100, stages: Optional[dict] = None,
                    marks: Optional[list] = None):
     """Full CascadeRCNN.simple_test on a batch of normalised images
     (B, 3, H, W). img_hw: the resized (pre-pad) shape boxes are clipped
-    to. Returns (boxes (B, max_per_img, 4), scores, labels, valid); labels
-    are 0-based COCO indices like the reference's result list positions.
+    to; scale: the resize's factor, which the final boxes are divided by
+    before the multiclass NMS. Returns (boxes (B, max_per_img, 4) in the
+    original frame's coordinates, scores, labels, valid); labels are
+    0-based COCO indices like the reference's result list positions.
     `stages`, when given, collects the intermediate tensors (pyramid,
     proposals, each stage's rois, logits and deltas, the final boxes and
     scores); `marks` CUDA events after each section (see _mark)."""
     dev = img.device
-    pyramid = model(img)
+    with annotate("detect.backbone"):
+        pyramid = model(img)
     _mark(marks, "backbone+fpn", dev)
-    proposals, valid = rpn_proposals(model, pyramid, anchors_per_level, img_hw,
-                                     nms_pre, nms_post, max_num, rpn_nms_thr)
+    with annotate("detect.rpn"):
+        proposals, valid = rpn_proposals(model, pyramid, anchors_per_level, img_hw,
+                                         nms_pre, nms_post, max_num, rpn_nms_thr)
     _mark(marks, "rpn+nms", dev)
-    bboxes, scores = cascade_stages(model, pyramid, proposals, img_hw, stages)
+    with annotate("detect.stages"):
+        bboxes, scores = cascade_stages(model, pyramid, proposals, img_hw, stages)
     _mark(marks, "stages", dev)
-    out = multiclass_nms(bboxes, scores, valid, score_thr, rcnn_nms_thr, max_per_img)
+    with annotate("detect.nms"):
+        out = multiclass_nms(true_div(bboxes, scale), scores, valid, score_thr,
+                             rcnn_nms_thr, max_per_img)
     _mark(marks, "multiclass-nms", dev)
     if stages is not None:
         stages.update(pyramid=pyramid, proposals=proposals, valid=valid,
@@ -538,6 +591,12 @@ def _resize_taps(src: int, dst: int, clamp: bool):
     return (np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_taps(src: int, dst: int, clamp: bool, device: torch.device):
+    """_resize_taps on `device`, uploaded once (see _const)."""
+    return tuple(torch.from_numpy(a).to(device) for a in _resize_taps(src, dst, clamp))
+
+
 def resize_linear_u8(frames, out_h: int, out_w: int):
     """cv2.resize(..., INTER_LINEAR) of a uint8 (B, H, W, C) tensor on its
     device, bit for bit: the horizontal pass in int32 (pixel x 11-bit
@@ -545,9 +604,8 @@ def resize_linear_u8(frames, out_h: int, out_w: int):
     ((w0*(S0>>4))>>16 + (w1*(S1>>4))>>16 + 2) >> 2."""
     B, H, W, C = frames.shape
     dev = frames.device
-    t = lambda a: torch.from_numpy(a).to(dev)
-    x0, x1, a0, a1 = (t(a) for a in _resize_taps(W, out_w, True))
-    y0, y1, b0, b1 = (t(a) for a in _resize_taps(H, out_h, False))
+    x0, x1, a0, a1 = _device_taps(W, out_w, True, dev)
+    y0, y1, b0, b1 = _device_taps(H, out_h, False, dev)
     x = frames.to(torch.int32)
     rows = x[:, :, x0] * a0[:, None] + x[:, :, x1] * a1[:, None]  # (B, H, out_w, C)
     v = (((rows[:, y0] >> 4) * b0[:, None, None]) >> 16) + \
@@ -583,8 +641,8 @@ def normalize_on_device(img_u8, img_hw: Tuple[int, int]):
     mmcv Pad semantic: the padding region (beyond img_hw) stays exactly
     0.0 because mmdet pads AFTER Normalize."""
     dev = img_u8.device
-    x = (img_u8.to(torch.float32) - torch.from_numpy(IMG_MEAN).to(dev)) / \
-        torch.from_numpy(IMG_STD).to(dev)
+    x = (img_u8.to(torch.float32) - _const(tuple(IMG_MEAN.tolist()), torch.float32, dev)) / \
+        _const(tuple(IMG_STD.tolist()), torch.float32, dev)
     H, W = img_u8.shape[-3:-1]
     inside = ((torch.arange(H, device=dev) < img_hw[0])[:, None]
               & (torch.arange(W, device=dev) < img_hw[1])[None, :])
@@ -609,6 +667,45 @@ def prepare_on_device(frames_bgr, long_edge: int = 1333, short_edge: int = 800):
 # ---------------------------------------------------------------------------
 
 
+class CascadeDetect(nn.Module):
+    """The detector's test-time forward as one module call: a uint8 BGR
+    stack (B, H, W, 3) already on the model's device -> (boxes, scores,
+    labels, ok), each (B, max_per_img[, 4]), boxes in the frames'
+    coordinates. The keep-ratio resize, the normalisation and the pad
+    (`detect.prep`), then cascade_detect. Gradients and TF32 are the
+    caller's to turn off (MMDetCascadeDetector.forward_device does)."""
+
+    def __init__(self, model: CascadeRCNN, img_scale: Tuple[int, int], test_cfg: dict):
+        super().__init__()
+        self.model = model
+        self.img_scale = tuple(img_scale)
+        self.test_cfg = dict(test_cfg)
+        self._anchors: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+
+    def anchors(self, padded_hw: Tuple[int, int]) -> List[torch.Tensor]:
+        padded_hw = tuple(padded_hw)
+        if padded_hw not in self._anchors:
+            dev = next(self.model.parameters()).device
+            self._anchors[padded_hw] = [torch.from_numpy(grid_anchors(
+                s, -(-padded_hw[0] // s), -(-padded_hw[1] // s))).to(dev)
+                for s in ANCHOR_STRIDES]
+        return self._anchors[padded_hw]
+
+    def forward(self, frames_u8, stages: Optional[dict] = None,
+                marks: Optional[list] = None):
+        with annotate("detect.prep"):
+            img, img_hw, scale = prepare_on_device(frames_u8, *self.img_scale)
+        _mark(marks, "resize+upload", frames_u8.device)
+        return cascade_detect(self.model, img, img_hw, self.anchors(img.shape[2:]),
+                              scale=scale, stages=stages, marks=marks, **self.test_cfg)
+
+
+def per_frame_detections(b, s, l, ok) -> list:
+    """Host arrays of a batched detection (boxes (B, P, 4), scores,
+    labels, ok) -> per frame (boxes, scores, labels) of its kept slots."""
+    return [(b[i][ok[i]], s[i][ok[i]], l[i][ok[i]]) for i in range(len(b))]
+
+
 class MMDetCascadeDetector:
     """AppearanceDetector backed by an mmdet cascade checkpoint, on
     `device` (the card unless the caller asks for the CPU), in full f32.
@@ -617,15 +714,21 @@ class MMDetCascadeDetector:
     rescale=True; __call__ adapts to the (boxes, scores) protocol that
     get_ap_bboxes-style filtering (fore.detector.filter_detections)
     consumes — class labels are dropped exactly like
-    obj_det_with_motion.py:77-86 vstacks all classes."""
+    obj_det_with_motion.py:77-86 vstacks all classes. `net` is the
+    forward as one module (CascadeDetect), which every route calls."""
 
     def __init__(self, model: CascadeRCNN, img_scale: Tuple[int, int] = (1333, 800),
                  device="cuda", **test_cfg):
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
-        self.img_scale = img_scale
-        self.test_cfg = test_cfg
-        self._anchors: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+        self.net = CascadeDetect(model.to(self.device).eval(), img_scale, test_cfg)
+
+    @property
+    def model(self) -> CascadeRCNN:
+        return self.net.model
+
+    @property
+    def img_scale(self) -> Tuple[int, int]:
+        return self.net.img_scale
 
     @classmethod
     def from_checkpoint(cls, path: str, depth: int | None = None, device="cuda",
@@ -640,26 +743,25 @@ class MMDetCascadeDetector:
         model = load_mmdet_state(CascadeRCNN(depth), ckpt)
         return cls(model, device=device, **test_cfg)
 
-    def anchors(self, padded_hw: Tuple[int, int]) -> List[torch.Tensor]:
-        if padded_hw not in self._anchors:
-            self._anchors[padded_hw] = [torch.from_numpy(grid_anchors(
-                s, -(-padded_hw[0] // s), -(-padded_hw[1] // s))).to(self.device)
-                for s in ANCHOR_STRIDES]
-        return self._anchors[padded_hw]
+    def scale(self, hw: Tuple[int, int]) -> float:
+        """The keep-ratio scale factor of an (h, w) frame."""
+        return rescale_shape(int(hw[0]), int(hw[1]), *self.img_scale)[2]
+
+    def forward_device(self, frames_u8, stages: Optional[dict] = None,
+                       marks: Optional[list] = None):
+        """`net` on a uint8 BGR stack already on the device, without
+        gradients and in full f32: (boxes, scores, labels, ok)."""
+        with torch.no_grad(), full_f32():
+            return self.net(frames_u8, stages=stages, marks=marks)
 
     def run(self, frames_bgr, stages: Optional[dict] = None,
             marks: Optional[list] = None):
         """One batched forward of a same-sized uint8 BGR stack (B, H, W, 3):
         -> (boxes, scores, labels, ok) tensors on the device, boxes in the
-        resized image's coordinates, and the scale factor."""
-        with torch.no_grad(), full_f32():
-            _mark(marks, "start", self.device)
-            x = torch.from_numpy(np.ascontiguousarray(frames_bgr)).to(self.device)
-            img, img_hw, scale = prepare_on_device(x, *self.img_scale)
-            _mark(marks, "resize+upload", self.device)
-            out = cascade_detect(self.model, img, img_hw, self.anchors(img.shape[2:]),
-                                 stages=stages, marks=marks, **self.test_cfg)
-        return out, scale
+        frames' coordinates, and the scale factor."""
+        _mark(marks, "start", self.device)
+        x = torch.from_numpy(np.ascontiguousarray(frames_bgr)).to(self.device)
+        return self.forward_device(x, stages, marks), self.scale(x.shape[1:3])
 
     def detect(self, img_bgr: np.ndarray):
         """-> (boxes (K, 4) in ORIGINAL image coords, scores (K,),
@@ -671,10 +773,8 @@ class MMDetCascadeDetector:
         (precompute-boxes over a whole split is the caller, via
         compute_foreground_bboxes's detect_many path). Returns a list of
         (boxes, scores, labels) like detect() per frame."""
-        (b, s, l, ok), scale = self.run(np.asarray(frames_bgr), marks=marks)
-        b, s, l, ok = (t.cpu().numpy() for t in (b, s, l, ok))
-        return [(b[i][ok[i]] / scale, s[i][ok[i]], l[i][ok[i]])
-                for i in range(len(b))]
+        (b, s, l, ok), _ = self.run(np.asarray(frames_bgr), marks=marks)
+        return per_frame_detections(*(t.cpu().numpy() for t in (b, s, l, ok)))
 
     def __call__(self, img_bgr: np.ndarray):
         boxes, scores, _ = self.detect(img_bgr)

@@ -102,3 +102,20 @@ def load_library(name: str) -> ctypes.CDLL:
         build_kernels([name])
         lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
+
+
+def launch(name: str, symbol: str, ptrs, ints, device) -> None:
+    """Call csrc/<name>.cu's C entry point `symbol` with device pointers
+    `ptrs` and int arguments `ints` on `device`'s current stream; raise if
+    it returns a CUDA error. Counts one launch of `name`."""
+    import torch
+
+    fn = getattr(load_library(name), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launch_counts[name] += 1

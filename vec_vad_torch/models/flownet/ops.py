@@ -15,8 +15,6 @@ Everything NHWC, as in the JAX package.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
@@ -104,20 +102,6 @@ def _check_kernel_inputs(a: torch.Tensor, b: torch.Tensor, max_disp, stride):
         )
 
 
-def _launch(name: str, symbol: str, ptrs, ints, device) -> None:
-    """Call csrc/<name>.cu's C entry point on `device`'s current stream;
-    raise if it returns a CUDA error."""
-    fn = getattr(kernels.load_library(name), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(*ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    kernels.launch_counts[name] += 1
-
-
 def correlation_kernel(
     a: torch.Tensor, b: torch.Tensor, max_disp: int = 20, stride: int = 2
 ) -> torch.Tensor:
@@ -126,9 +110,9 @@ def correlation_kernel(
     B, H, W, C = a.shape
     n = 2 * max_disp // stride + 1
     out = torch.empty((B, H, W, n * n), dtype=a.dtype, device=a.device)
-    _launch("correlation", "vv_correlation_fwd",
-            (a.data_ptr(), b.data_ptr(), out.data_ptr()),
-            (_KERNEL_DTYPES[a.dtype], B, H, W, C, max_disp, stride), a.device)
+    kernels.launch("correlation", "vv_correlation_fwd",
+                   (a.data_ptr(), b.data_ptr(), out.data_ptr()),
+                   (_KERNEL_DTYPES[a.dtype], B, H, W, C, max_disp, stride), a.device)
     return out
 
 
@@ -151,10 +135,10 @@ def correlation_bwd_kernel(a, b, g, max_disp: int = 20, stride: int = 2):
     g = g.contiguous()
     B, H, W, C = a.shape
     grad_a, grad_b = torch.empty_like(a), torch.empty_like(b)
-    _launch("correlation_bwd", "vv_correlation_bwd",
-            (a.data_ptr(), b.data_ptr(), g.data_ptr(), grad_a.data_ptr(),
-             grad_b.data_ptr()),
-            (_KERNEL_DTYPES[a.dtype], B, H, W, C, max_disp, stride), a.device)
+    kernels.launch("correlation_bwd", "vv_correlation_bwd",
+                   (a.data_ptr(), b.data_ptr(), g.data_ptr(), grad_a.data_ptr(),
+                    grad_b.data_ptr()),
+                   (_KERNEL_DTYPES[a.dtype], B, H, W, C, max_disp, stride), a.device)
     return grad_a, grad_b
 
 

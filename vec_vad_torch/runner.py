@@ -82,7 +82,7 @@ class SplitData:
     index: VideoIndex
     frames: LazyFrameStack | NativeFrameStack
     flow: Optional[LazyFlowStack]
-    boxes: List[np.ndarray]
+    boxes: Optional[List[np.ndarray]]
 
 
 def _dataset_root(cfg: PipelineConfig, base: str) -> str:
@@ -113,10 +113,11 @@ def _resolve_detector(cfg: PipelineConfig, device="cuda"):
 
 
 def load_split(cfg: PipelineConfig, base: str, split: str,
-               device="cuda") -> SplitData:
+               device="cuda", boxes: bool = True) -> SplitData:
     """Assemble one split's inputs: index, lazy frames, optional flow tree,
     and foreground boxes (the bbox fixture file if present, else computed
-    from the frames with the motion maps on `device`)."""
+    from the frames with the motion maps on `device`; None with
+    boxes=False, for a route that finds them itself)."""
     root = _dataset_root(cfg, base)
     spec = cfg.dataset
     index = VideoIndex.from_layout(cfg.dataset_name, root, split, spec.file_ext)
@@ -132,18 +133,20 @@ def load_split(cfg: PipelineConfig, base: str, split: str,
         except FileNotFoundError:
             flow = None
 
+    if not boxes:
+        return SplitData(index=index, frames=frames, flow=flow, boxes=None)
     fixture = os.path.join(
         root, f"bboxes_{split}_{cfg.fore.extraction_mode}.npy"
     )
     if os.path.exists(fixture):
         det = PrecomputedDetector(fixture)
-        boxes = [det.boxes_for_frame(i) for i in range(index.total_frames)]
+        split_boxes = [det.boxes_for_frame(i) for i in range(index.total_frames)]
     else:
-        boxes = compute_foreground_bboxes(
+        split_boxes = compute_foreground_bboxes(
             cfg, spec, index, frames=frames,
             detector=_resolve_detector(cfg, device), device=device,
         )
-    return SplitData(index=index, frames=frames, flow=flow, boxes=boxes)
+    return SplitData(index=index, frames=frames, flow=flow, boxes=split_boxes)
 
 
 def _extract_cached(

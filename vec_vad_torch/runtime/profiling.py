@@ -13,7 +13,14 @@ kernel), `serve.flow` (live FlowNet2 with its resizes), `serve.stc`
 (cube extraction), `serve.ensemble` (the completion nets and the score
 arithmetic), `serve.wait` (the host blocked on the result's download)
 and `serve.finish` (host score routing); the ring writes and window
-gathers are the tick's own. Training (`BlockTrainer.fit_block`):
+gathers are the tick's own. On the detecting fleet
+(serve/detect_fleet.py) `serve.detect` opens the tick: the Cascade
+R-CNN's forward, with `detect.prep` (resize, normalise, pad),
+`detect.backbone` (ResNet and FPN), `detect.rpn` (the RPN head and its
+NMS), `detect.stages` (the three cascade stages) and `detect.nms` (the
+multiclass NMS) inside it (fore/mmdet_detector.py, wherever the
+detector runs), its download (`serve.wait`) and `detect.filter` (the
+host's score, area and cover filter). Training (`BlockTrainer.fit_block`):
 `train.fit` holds `train.init_state`, `train.upload`,
 `train.schedule_host`, `train.train_scan`, `train.score_pass` and
 `train.param_download`, fit_block_budget's phases. To see them, run

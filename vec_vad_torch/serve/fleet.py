@@ -195,14 +195,19 @@ class MultiCameraScorer(StreamingScorer):
         pipeline_depth=d, returns the scores of the tick pushed d calls
         ago (None while the pipeline fills; drain() at stream end)."""
         with annotate("serve.tick"):
-            with annotate("serve.stage"):
-                frames, boxes_pad, nbs = self._norm_tick(frames, boxes_list)
-                self._ensure_rings(*frames.shape[1:3])
-                staged = self._staged_ticks(frames, flows, boxes_pad, nbs)
-            outs = self._run_ticks(staged)
-            self._tick += 1
-            return self._emit_tick(outs, boxes_pad, nbs,
-                                   self.use_flow and flows is None)
+            return self._score_tick(frames, boxes_list, flows)
+
+    def _score_tick(self, frames, boxes_list, flows):
+        """push_tick's work inside its `serve.tick` span: stage, the
+        entries' tick steps, then the result queued."""
+        with annotate("serve.stage"):
+            frames, boxes_pad, nbs = self._norm_tick(frames, boxes_list)
+            self._ensure_rings(*frames.shape[1:3])
+            staged = self._staged_ticks(frames, flows, boxes_pad, nbs)
+        outs = self._run_ticks(staged)
+        self._tick += 1
+        return self._emit_tick(outs, boxes_pad, nbs,
+                               self.use_flow and flows is None)
 
     def time_device_tick(self, frames: np.ndarray, boxes_list,
                          k: int = 32, repeats: int = 3) -> float:
