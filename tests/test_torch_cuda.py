@@ -972,6 +972,54 @@ def test_layer_profiler_on_card(cuda):
     assert set(prog) == {"fwd_b8_float32", "fwd_b8_bfloat16"}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("held", ["as_built", "nchw"])
+@pytest.mark.parametrize("mode", ["train_step", "eval_forward"])
+def test_ensemble_layout_kernels_on_card(cuda, full_f32, mode, held):
+    """The raw-only ensemble (5 members, nf=32, patch 32) in f32 under
+    torch.profiler: one BlockTrainer step at batch 128 and one eval
+    forward over 144 rows. Held NCHW-contiguous, the control, the net
+    spends over 30 % of the device time in layout kernels (cuDNN's
+    transposes around every grouped convolution: 44-51 % measured on an
+    H100); as built (channels_last) under 15 %: what stays is cuDNN's
+    own NHWC/NCHW conversion around the f32 grouped forward
+    convolutions, whose engines are NCHW (10.5-12.4 % measured; with
+    cudnn.benchmark cuDNN picks the same engines, 11.4-14.1 %)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vec_vad_torch.config import CompletionConfig
+    from vec_vad_torch.runtime.layer_profile import layout_time
+    from vec_vad_torch.train.trainer import BlockTrainer
+
+    cfg = CompletionConfig(nf=32, context_of_num=0, use_flow=False, batch_size=128)
+    bt = BlockTrainer(cfg, 32, cuda)
+    if held == "nchw":
+        bt.net.to(memory_format=torch.contiguous_format)
+    bt.start_fit(bt.init_state(0))
+    rows = 128 if mode == "train_step" else 144
+    x = torch.rand((rows, 32, 32, 15), generator=torch.Generator().manual_seed(0)).to(cuda)
+    w = torch.ones(rows, device=cuda)
+
+    def once():
+        if mode == "train_step":
+            bt.train_step(x, None, w)
+        else:
+            with torch.no_grad():
+                bt.net(x, None)
+
+    once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        once()
+        torch.cuda.synchronize()
+    res = layout_time(prof)
+    assert res["device_ms"] > 0
+    if held == "as_built":
+        assert res["layout_pct"] < 15.0, res
+    else:
+        assert res["layout_pct"] > 30.0, res
+
+
 # ---------------------------------------------------------------------------
 # the device mesh: a mesh that names the card twice (the one-card machine's
 # only mesh; NCCL and torch.cuda.comm refuse it, the port's copies do not)

@@ -245,34 +245,86 @@ def test_grid_matches_sequential(use_flow):
             assert _rel(g.of_scores, solo.of_scores) <= SEQ_REL, key
 
 
-def test_ragged_grid_finished_block_equals_its_solo_fit():
+def _ragged_blocks():
     """A block with fewer steps than the other's first epoch (7 cubes: 1
-    step an epoch, 2 in all, against 40 cubes' 3 an epoch) stops while the
-    other trains on: its weights, running statistics and Adam state (step
-    and both moments) after the grid's 6 steps equal its solo fit's within
-    1e-6 of their largest."""
-    _, tcfg = _configs()
+    step an epoch, 2 in all, against 40 cubes' 3 an epoch)."""
     rng = np.random.default_rng(5)
     big = rng.integers(0, 256, (40, P, P, 15), dtype=np.uint8)
     small = rng.integers(0, 256, (7, P, P, 15), dtype=np.uint8)
+    return big, small
+
+
+def _ragged_grid_fit(tcfg, blocks, steps, held=None):
+    """(fit, finished blocks) of a 2-block grid's first `steps` steps, the
+    grid net held in `held` (default: as built)."""
     gt = t_grid.GridTrainer(tcfg.model, P, "cpu")
-    fit = gt.prepare([((0, 1, 1), big, None), ((0, 0, 0), small, None)],
-                     gt.solo.init_state(SEED), SEED)
-    assert list(fit.active) == [2, 2, 1, 1, 1, 1]
-    out = fit.finish(fit.losses([fit.step(s) for s in range(6)]))
-    assert out[(0, 0, 0)].losses.shape == (2,) and out[(0, 1, 1)].losses.shape == (6,)
-    bt = BlockTrainer(tcfg.model, P, "cpu")
-    solo = bt.fit_block(small, None, seed=SEED)
-    assert _weight_rel(out[(0, 0, 0)].state_dict, solo.state_dict) <= 1e-6
+    if held is not None:
+        gt.net(2).to(memory_format=held)
+    fit = gt.prepare(blocks, gt.solo.init_state(SEED), SEED)
+    return fit, fit.finish(fit.losses([fit.step(s) for s in range(steps)]))
+
+
+def _assert_finished_block_equals(fit, out, want_state, want_adam):
+    """The small block (grid block 1, key (0, 0, 0)) after the ragged
+    grid's 6 steps: weights and running statistics, Adam's step and both
+    moments within 1e-6 of their largest."""
+    assert _weight_rel(out[(0, 0, 0)].state_dict, want_state) <= 1e-6
     st = fit.adam.block_state(1)
-    assert st["step"] == 2 and fit.adam.block_state(0)["step"] == 6
-    for name, p in bt.net.named_parameters():
-        want = bt.opt.state[p]
-        assert int(want["step"]) == 2
-        for moment in ("exp_avg", "exp_avg_sq"):
-            w = want[moment]
+    assert st["step"] == want_adam["step"] == 2 and fit.adam.block_state(0)["step"] == 6
+    for moment in ("exp_avg", "exp_avg_sq"):
+        assert st[moment].keys() == want_adam[moment].keys()
+        for name, w in want_adam[moment].items():
             assert float((st[moment][name] - w).abs().max()) <= 1e-6 * max(
                 float(w.abs().max()), 1e-30), (name, moment)
+
+
+def test_ragged_grid_finished_block_equals_its_solo_fit():
+    """A block with fewer steps than the other's first epoch stops while
+    the other trains on, and its two steps are its solo fit's.
+
+    As built (channels_last): its two losses equal the solo BlockTrainer
+    fit's within 1e-6, and its weights, running statistics and Adam state
+    (step and both moments) after the grid's 6 steps equal, within 1e-6
+    of their largest, those of the same block fit for its 2 steps in a
+    grid of the same width beside a block of its own length. The
+    parameters are held to that grid, not to the solo fit: on the CPU a
+    channels_last reduction rounds each channel by the tensor's width
+    (torch's outer sums over rows of channels), so a 2-block grid's first
+    gradients differ from a 1-block net's by up to ~7e-6 of each
+    parameter's largest (wholly for the DoubleConv biases before a
+    train-mode BatchNorm, whose gradient is 0 but for rounding), and Adam
+    turns such differences in near-zero entries into steps of up to lr.
+
+    Held NCHW, where the CPU sums every channel alike whatever the width,
+    the same block after the same 6 grid steps equals the solo fit
+    itself: losses, weights, statistics and Adam state within 1e-6."""
+    _, tcfg = _configs()
+    big, small = _ragged_blocks()
+    ragged = [((0, 1, 1), big, None), ((0, 0, 0), small, None)]
+    for held in (None, torch.contiguous_format):
+        fit, out = _ragged_grid_fit(tcfg, ragged, 6, held)
+        assert list(fit.active) == [2, 2, 1, 1, 1, 1]
+        assert fit.net.raw_unets.memory_format(torch.float32) == (
+            held or torch.channels_last)
+        assert out[(0, 0, 0)].losses.shape == (2,) and out[(0, 1, 1)].losses.shape == (6,)
+        bt = BlockTrainer(tcfg.model, P, "cpu")
+        if held is not None:
+            bt.net.to(memory_format=held)
+        solo = bt.fit_block(small, None, seed=SEED)
+        assert _rel(out[(0, 0, 0)].losses, solo.losses) <= 1e-6
+        if held is None:
+            partner = np.random.default_rng(9).integers(0, 256, small.shape, dtype=np.uint8)
+            even, even_out = _ragged_grid_fit(
+                tcfg, [((0, 1, 1), partner, None), ((0, 0, 0), small, None)], 2)
+            assert list(even.active) == [2, 2]
+            _assert_finished_block_equals(fit, out, even_out[(0, 0, 0)].state_dict,
+                                          even.adam.block_state(1))
+        else:
+            params = dict(bt.net.named_parameters())
+            assert {int(bt.opt.state[p]["step"]) for p in params.values()} == {2}
+            want_adam = {"step": 2, **{m: {n: bt.opt.state[p][m] for n, p in params.items()}
+                                       for m in ("exp_avg", "exp_avg_sq")}}
+            _assert_finished_block_equals(fit, out, solo.state_dict, want_adam)
 
 
 def test_memory_budget_splits_the_grid_into_calls(monkeypatch):

@@ -147,6 +147,22 @@ def test_profile_smoke_runs_and_table():
         lp.profile_completion_program(batches=(2,), mode="bwd", device="cpu")
 
 
+def test_layout_kernels_are_the_benchmarks_patterns():
+    """The layout kernels the CUDA test counts are the ones the
+    benchmark's layout_pct reads; a CPU profile has no device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vadbench.metrics.layout_pct import PATTERNS
+
+    assert lp.LAYOUT_KERNELS == PATTERNS
+    assert lp.is_layout_kernel("void cudnn::engines_precompiled::nhwcToNchwKernel<float>")
+    assert lp.is_layout_kernel("void at::native::genericTranspose<float>")
+    assert not lp.is_layout_kernel("sm80_xmma_fprop_implicit_gemm_f32f32_f32f32_f32")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(4, 4).t().contiguous()
+    assert lp.layout_time(prof) == {"device_ms": 0.0, "layout_ms": 0.0, "layout_pct": 0.0}
+
+
 def test_entry_point_on_the_cpu(capsys):
     lp.main(["--ensemble", "--batch", "2", "--iters", "1", "--device", "cpu"])
     out = capsys.readouterr().out

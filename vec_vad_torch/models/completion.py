@@ -4,7 +4,8 @@
 One configurable class covers the reference architectures (model/unet.py):
 SelfCompleteNet4 ("5raw1of", tot_of_num=1), SelfCompleteNetFull
 ("5raw5of"), SelfCompleteNet1raw1of (raw_range). The E erased-position
-members run as one grouped-convolution UNet (models/layers.py).
+members run as one grouped-convolution UNet (models/layers.py), in its
+weights' layout from the member stack to the outputs.
 
 Semantics preserved exactly:
   * erasure by channel drop when padding=False (unet.py:183) or zero-fill
@@ -59,16 +60,21 @@ def _erase(x: torch.Tensor, k: int, ch: int, padding: bool) -> torch.Tensor:
     return torch.cat([x[..., : k * ch], x[..., (k + 1) * ch :]], dim=-1)
 
 
-def _members_in(stack: torch.Tensor) -> torch.Tensor:
+def _members_in(stack: torch.Tensor,
+                memory_format: torch.memory_format) -> torch.Tensor:
     """(G, E, K, P, P, C) NHWC member stack -> (K, G*E*C, P, P),
-    block-major then member-major."""
+    block-major then member-major, in memory_format: one copy (into a
+    physical (K, P, P, G*E*C) tensor for channels_last)."""
     G, E, K, P, Q, C = stack.shape
-    return stack.reshape(G * E, K, P, Q, C).permute(1, 0, 4, 2, 3).reshape(
-        K, G * E * C, P, Q)
+    out = torch.empty((K, G * E * C, P, Q), dtype=stack.dtype, device=stack.device,
+                      memory_format=memory_format)
+    out.unflatten(1, (G, E, C)).copy_(stack.permute(2, 0, 1, 5, 3, 4))
+    return out
 
 
 def _members_out(y: torch.Tensor, members: int) -> torch.Tensor:
-    """(K, E*C, P, P) -> (E, K, P, P, C)."""
+    """(K, E*C, P, P) -> (E, K, P, P, C): a view (of a channels_last y's
+    (K, P, P, E, C))."""
     K, EC, P, Q = y.shape
     return y.reshape(K, members, EC // members, P, Q).permute(1, 0, 3, 4, 2)
 
@@ -148,7 +154,8 @@ class SelfCompletionNet(nn.Module):
         )
         E = len(positions)
         raw_out = _members_out(
-            self.raw_unets(_members_in(erased), train, batch_weight), G * E)
+            self.raw_unets(_members_in(erased, self.raw_unets.memory_format(x.dtype)),
+                           train, batch_weight), G * E)
 
         of_out = of_tgt = None
         if self.of_unets is not None:
@@ -161,7 +168,8 @@ class SelfCompletionNet(nn.Module):
             flow_in = torch.stack([erased[:, positions.index(k)] for k, _ in fpos],
                                   dim=1)
             of_out = _members_out(
-                self.of_unets(_members_in(flow_in), train, batch_weight),
+                self.of_unets(_members_in(flow_in, self.of_unets.memory_format(x.dtype)),
+                              train, batch_weight),
                 G * len(fpos))
             assert x_of is not None, "use_flow=True requires x_of"
             of_tgt = torch.stack(

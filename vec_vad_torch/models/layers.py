@@ -3,9 +3,25 @@
 
 The JAX package runs the erased-position ensemble as one UNet vmapped over
 stacked parameters. Here the E members run as ONE network of grouped
-convolutions: activations are NCHW with E*C channels, member-major, and
-every convolution uses groups=E, so the whole ensemble is one launch per
-layer. Semantics per member are torch's defaults, which layers.py
+convolutions: activations are (N, E*C, H, W) with E*C channels,
+member-major, and every convolution uses groups=E, so the whole ensemble
+is one launch per layer.
+
+The layout is the layer's to choose (`UNet.memory_format`), from what it
+sees: its groups and the activations' dtype. A net of several members
+(groups > 1) is built channels_last and runs f32 physically NHWC from the
+cube stack to the outputs: around the grouped f32 convolutions of an NCHW
+chain cuDNN spends about half the device time in `genericTranspose`, in
+NHWC about a tenth in its own conversions. A one-member chain (groups 1)
+is built NCHW, where cuDNN converts next to nothing and is the faster.
+A low-precision forward runs NCHW whatever its weights' layout (each
+convolution takes its weight in its input's layout, `_in_layout_of`): a
+bf16 training step is the faster there (its BatchNorm's reductions and
+elementwise passes are slower over NHWC). The weights stay channels_last
+for the f32 passes (a bf16 fit's score pass runs f32), so a bf16 forward
+of a grouped chain copies each weight to NCHW and its gradient back. A
+net moved with `.to(memory_format=...)` runs the same f32 arithmetic in
+the other layout. Semantics per member are torch's defaults, which layers.py
 replicates:
 
   * Conv2d 3x3 'same' / 1x1;
@@ -38,6 +54,20 @@ from vec_vad_torch.device import resolve_device
 from vec_vad_torch.parallel.mesh import all_reduce, in_mesh_step
 
 
+def _layout(members: int) -> torch.memory_format:
+    """The layout a layer of `members` groups holds its weights in."""
+    return torch.channels_last if members > 1 else torch.contiguous_format
+
+
+def _in_layout_of(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w in x's layout, so cuDNN sees one: an NCHW copy of a
+    channels_last weight for an NCHW x (a low-precision forward, where
+    the cast is a copy anyway), else w itself."""
+    if w.is_contiguous() or x.is_contiguous(memory_format=torch.channels_last):
+        return w
+    return w.contiguous()
+
+
 def _prefix(t: torch.Tensor, n: int) -> torch.Tensor:
     """The first n rows of t (t itself when it has n): the members of the
     blocks a grid step runs."""
@@ -45,7 +75,8 @@ def _prefix(t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """E grouped k x k 'same' convolutions; weight (E*O, I, k, k)."""
+    """E grouped k x k 'same' convolutions; weight (E*O, I, k, k),
+    channels_last for E > 1."""
 
     def __init__(self, members, in_ch, features, kernel_size=3, device="cuda"):
         super().__init__()
@@ -54,33 +85,36 @@ class Conv(nn.Module):
         self.members, self.padding = members, k // 2
         self.in_ch, self.features = in_ch, features
         self.weight = nn.Parameter(
-            torch.empty(members * features, in_ch, k, k, device=dev)
+            torch.empty(members * features, in_ch, k, k, device=dev,
+                        memory_format=_layout(members))
         )
         self.bias = nn.Parameter(torch.empty(members * features, device=dev))
 
     def forward(self, x):
         m = x.shape[1] // self.in_ch
         n = m * self.features
-        return F.conv2d(x, _prefix(self.weight, n), _prefix(self.bias, n), 1,
-                        self.padding, 1, m)
+        return F.conv2d(x, _in_layout_of(_prefix(self.weight, n), x),
+                        _prefix(self.bias, n), 1, self.padding, 1, m)
 
 
 class ConvTranspose2x(nn.Module):
     """E grouped ConvTranspose2d(k=3, s=2, p=1, output_padding=1): doubles
-    the spatial size (model/unet.py:54); weight (E*I, O, 3, 3)."""
+    the spatial size (model/unet.py:54); weight (E*I, O, 3, 3),
+    channels_last for E > 1."""
 
     def __init__(self, members, in_ch, features, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
         self.members, self.in_ch, self.features = members, in_ch, features
         self.weight = nn.Parameter(
-            torch.empty(members * in_ch, features, 3, 3, device=dev)
+            torch.empty(members * in_ch, features, 3, 3, device=dev,
+                        memory_format=_layout(members))
         )
         self.bias = nn.Parameter(torch.empty(members * features, device=dev))
 
     def forward(self, x):
         m = x.shape[1] // self.in_ch
-        return F.conv_transpose2d(x, _prefix(self.weight, x.shape[1]),
+        return F.conv_transpose2d(x, _in_layout_of(_prefix(self.weight, x.shape[1]), x),
                                   _prefix(self.bias, m * self.features),
                                   2, 1, 1, m)
 
@@ -247,14 +281,15 @@ def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
 
 
 def _cat_members(members, a, b):
-    """Per-member channel concat [a_e, b_e] of two (N, E*Ca, ...) and
-    (N, E*Cb, ...) member-major tensors."""
-    n, h, w = a.shape[0], a.shape[2], a.shape[3]
-    y = torch.cat(
-        [a.reshape(n, members, -1, h, w), b.reshape(n, members, -1, h, w)],
-        dim=2,
-    )
-    return y.reshape(n, -1, h, w)
+    """Per-member channel concat [a_e, b_e] of two (N, E*Ca, H, W) and
+    (N, E*Cb, H, W) member-major tensors, in a's layout: a channels_last
+    a concatenates on the last axis of its (N, H, W, E, C) view, so the
+    result is channels_last too."""
+    if a.is_contiguous(memory_format=torch.channels_last):
+        parts = [t.permute(0, 2, 3, 1).unflatten(3, (members, -1)) for t in (a, b)]
+        return torch.cat(parts, dim=4).flatten(3).permute(0, 3, 1, 2)
+    parts = [t.unflatten(1, (members, -1)) for t in (a, b)]
+    return torch.cat(parts, dim=2).flatten(1, 2)
 
 
 class UNet(nn.Module):
@@ -263,8 +298,8 @@ class UNet(nn.Module):
     concat + double_conv) -> 1x1 outconv. Channels f, 2f, 4f, 8f.
 
     forward: (N, E*in_ch, P, P) -> (N, E*out_ch, P, P), member-major (or
-    the first m members: (N, m*in_ch, P, P) -> (N, m*out_ch, P, P));
-    `train` and `batch_weight` go to every BatchNorm."""
+    the first m members: (N, m*in_ch, P, P) -> (N, m*out_ch, P, P)), x in
+    `memory_format(x.dtype)`; `train` and `batch_weight` go to every BatchNorm."""
 
     def __init__(self, members, in_ch, features_root, out_channels,
                  device="cuda"):
@@ -288,6 +323,14 @@ class UNet(nn.Module):
             DoubleConv(E, 2 * f, f, d),
         ])
         self.out = Conv(E, f, out_channels, kernel_size=1, device=d)
+
+    def memory_format(self, dtype: torch.dtype) -> torch.memory_format:
+        """The layout of the chain's activations in `dtype`: NCHW for a
+        low-precision dtype, else its weights' (module docstring)."""
+        w = self.down[0].conv0.weight
+        if dtype == torch.float32 and w.is_contiguous(memory_format=torch.channels_last):
+            return torch.channels_last
+        return torch.contiguous_format
 
     def forward(self, x, train: bool = False, batch_weight=None):
         t, w = train, batch_weight

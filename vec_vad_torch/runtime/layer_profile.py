@@ -18,7 +18,8 @@ tests' plain path.
 3x3 convolutions, `profile_ensemble_formulations()` the four layouts of
 E members' convolutions, `profile_completion_program()` the whole
 SelfCompletionNet forward or forward + backward, `timed_loop()` any
-other callable.
+other callable, `layout_time()` the layout kernels' share of a
+torch.profiler run's device time.
 
     python -m vec_vad_torch.runtime.layer_profile [--batch 512] [--ensemble | --program fwdbwd]
 """
@@ -367,6 +368,32 @@ def profile_completion_program(
                                      min_wall_s=min_wall_s, max_iters=10_000)
             results[f"{mode}_b{B}_{_dtype_name(dt)}"] = (round(ms, 3), round(tps, 1))
     return results
+
+
+#: Device kernels that only convert a layout (cuDNN's transposes between
+#: NCHW and NHWC, generic tensor transposes), matched case-insensitively:
+#: the benchmark's layout_pct patterns (vadbench/metrics/layout_pct.py).
+LAYOUT_KERNELS = ("genericTranspose", "nchwToNhwc", "nhwcToNchw",
+                  "transpose_readWrite", "batch_transpose")
+
+
+def is_layout_kernel(name: str) -> bool:
+    low = name.lower()
+    return any(p.lower() in low for p in LAYOUT_KERNELS)
+
+
+def layout_time(prof) -> Dict[str, float]:
+    """A finished torch.profiler run's device kernels reduced to
+    {"device_ms", "layout_ms", "layout_pct"}: their summed time and the
+    layout kernels' (`is_layout_kernel`) time and share of it."""
+    total = layout = 0.0
+    for e in prof.events():
+        for k in getattr(e, "kernels", None) or ():
+            us = float(k.duration)
+            total += us
+            layout += us if is_layout_kernel(k.name) else 0.0
+    return {"device_ms": total * 1e-3, "layout_ms": layout * 1e-3,
+            "layout_pct": 100.0 * layout / total if total else 0.0}
 
 
 def format_table(

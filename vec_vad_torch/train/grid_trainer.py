@@ -78,6 +78,12 @@ _TRAIN_UNITS, _SCORE_UNITS = 40, 8
 _CPU_BUDGET = 8 << 30  # bytes a grid call may take on the CPU
 
 
+def _memory(t: torch.Tensor) -> torch.Tensor:
+    """A dense tensor's elements in their memory order (a channels_last
+    weight's is NHWC), as a 1-D view."""
+    return t.as_strided((t.numel(),), (1,))
+
+
 def _copy_rows(dst: torch.Tensor, src) -> None:
     dst.copy_(src if isinstance(src, torch.Tensor)
               else torch.from_numpy(np.ascontiguousarray(src)))
@@ -85,8 +91,10 @@ def _copy_rows(dst: torch.Tensor, src) -> None:
 
 class _GridAdam:
     """torch.optim.Adam's update over a grid net's parameters, which it
-    re-seats as views of one flat f32 buffer (dim 0 of every parameter is
-    block-major, so each block's share of a parameter is contiguous)."""
+    re-seats as views of one flat f32 buffer, each parameter's memory in
+    its own layout (channels_last weights stay so; dim 0 of every
+    parameter is block-major and outermost, so each block's share of a
+    parameter is contiguous)."""
 
     def __init__(self, net: SelfCompletionNet, blocks: int, lr: float,
                  eps: float, betas=(0.9, 0.999)):
@@ -95,9 +103,9 @@ class _GridAdam:
         self.params = [p for _, p in named]
         self.sizes = [p.numel() for p in self.params]
         self.blocks, self.lr, self.eps, self.betas = blocks, lr, eps, betas
-        self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+        self.flat = torch.cat([_memory(p.detach()) for p in self.params])
         for p, v in zip(self.params, self.flat.split(self.sizes)):
-            p.data = v.view(p.shape)
+            p.data = v.as_strided(p.shape, p.stride())
         self.exp_avg = torch.zeros_like(self.flat)
         self.exp_avg_sq = torch.zeros_like(self.flat)
         dev = self.flat.device
@@ -110,14 +118,15 @@ class _GridAdam:
     def leaves(self, dtype: torch.dtype) -> Optional[Dict[str, torch.Tensor]]:
         """The step's differentiated parameters: None for f32 (the net's
         own, their gradients cleared), else a `dtype` copy of the flat
-        buffer cut into leaves (one cast launch)."""
+        buffer cut into leaves (one cast launch), in the parameters'
+        layouts."""
         if dtype == torch.float32:
             self._leaves = None
             for p in self.params:
                 p.grad = None
             return None
         low = self.flat.to(dtype).split(self.sizes)
-        self._leaves = [v.view(p.shape).detach().requires_grad_()
+        self._leaves = [v.as_strided(p.shape, p.stride()).detach().requires_grad_()
                         for v, p in zip(low, self.params)]
         return dict(zip(self.names, self._leaves))
 
@@ -126,7 +135,8 @@ class _GridAdam:
         same step: schedules start together); the others keep their
         parameters, moments and step bit for bit."""
         src = self.params if self._leaves is None else self._leaves
-        grads = torch.cat([v.grad.reshape(-1) for v in src]).float()
+        # a leaf's gradient has its leaf's strides (autograd's layout rule)
+        grads = torch.cat([_memory(v.grad) for v in src]).float()
         b1, b2 = self.betas
         step_size = -self.lr / (1 - b1 ** t)
         bc2_sqrt = (1 - b2 ** t) ** 0.5
@@ -151,8 +161,8 @@ class _GridAdam:
         out = {"step": int(self.steps[g])}
         for key, buf in (("exp_avg", self.exp_avg), ("exp_avg_sq", self.exp_avg_sq)):
             out[key] = {
-                n: v.view(self.blocks, -1)[g].reshape((p.shape[0] // self.blocks,)
-                                                      + p.shape[1:]).cpu()
+                n: v.as_strided(p.shape, p.stride()).unflatten(0, (self.blocks, -1))[g]
+                .to("cpu", memory_format=torch.contiguous_format)
                 for n, v, p in zip(self.names, buf.split(self.sizes), self.params)
             }
         return out

@@ -194,8 +194,10 @@ class BlockTrainer(nn.Module):
         )
 
     def state(self) -> State:
-        """The net's weights and running statistics, copied to the host."""
-        return {k: v.detach().to("cpu", copy=True)
+        """The net's weights and running statistics, copied to the host
+        (contiguous: the channels_last weights' values in torch's default
+        layout)."""
+        return {k: v.detach().to("cpu", copy=True, memory_format=torch.contiguous_format)
                 for k, v in self.net.state_dict().items()}
 
     # -- one step -----------------------------------------------------------
